@@ -6,7 +6,7 @@ the CUDA toolkit::
     python3 chip_smoke.py
 
 It builds the bin-top-2 kernel from ``gpann_tpu_torch/csrc/``, holds it
-against its plain PyTorch version, then drives two paths at the bench
+against its plain PyTorch version, then drives three paths at the bench
 configuration (8M x 96 points regenerated from seed 555, 4096 queries, k=10,
 32 shards, eps 0.05):
 
@@ -20,6 +20,16 @@ configuration (8M x 96 points regenerated from seed 555, 4096 queries, k=10,
    kernel B2, the GP partition of a 1M subsample extended to all points,
    and a k-means-tree router trained on a 2M subsample — then serves from
    them and checks them against the shipped ones.
+3. Query attribution: the paper's experiment pipeline through the port's
+   CLIs on the first 1024 queries, as ``exp_scripts/qa_ogp_8m.py`` runs it:
+   an overlapping cover of the shipped GP partition (overlap 0.2, centroid
+   method, streamed), the O* partitioners on a 100k prefix
+   (``cli.partition``), ``cli.query_attribution`` (fresh ground truth through
+   kernel B2, router budget 40k, the 9-step in-shard sweep, the 19-column
+   CSV and its Pareto front), ``cli.oracle_recall`` and
+   ``cli.small_scale_queries`` on the shipped partition. The inputs are
+   written as ``.fbin`` into a temporary directory that is removed at the
+   end.
 
 Kernel times are CUDA-event times; build stages are wall seconds with a
 CUDA synchronisation at each stage end. Any failed check raises, so the exit
@@ -64,6 +74,21 @@ ROUTER_BUDGET = 10_000
 GT_RECALL_MIN = 0.9999        # fresh GT ids against the shipped kth distance
 GT_KTH_RTOL = 1e-4
 BUILD_SERVE_SLACK = 0.01      # fresh serve recall >= shipped curve[0] - this
+# query attribution at the settings of exp_scripts/qa_ogp_8m.py
+QA_NQ = 1024
+QA_OVERLAP = 0.2
+QA_REP_SUBSAMPLE = 2_000_000  # cover representatives from this many points,
+QA_REP_SEED = SEED + 3        # drawn with this seed,
+QA_REPS_PER_SHARD = 64        # 64 per shard
+# router budgets: qa_ogp_8m.py sweeps 40000 and 400000; the 400k router
+# is cut to keep the phase short (PERF.md, section 6)
+QA_BUDGETS = "40000"
+QA_PREFIX = 100_000           # rows the O* partitioners run on
+QA_METHODS = ("OGP", "OKM")
+QA_ORACLE_SLACK = 0.002       # CSV recall <= a route's oracle curve + this
+QA_ORACLE_PROBES = (1, 2, 4, 32)
+QA_SMALL_BRUTE_MIN = 0.999    # small-scale BruteForce recall at 32 probes
+QA_FREE_BYTES = 12 << 30      # scratch space the phase needs
 SOURCE = "gpann_tpu_torch/csrc/bintop2.cu"
 REPLACES = {
     "binmin_scan": "gpann_tpu/search/pallas_scan.py:39",      # _bintop2_kernel
@@ -330,6 +355,221 @@ def cold_build(dev, pts: np.ndarray, q: np.ndarray, shipped: dict,
     return launches
 
 
+def _qa_csv_recalls(path: str):
+    """Recall of each (route, ef_search, nprobes) of a query-attribution CSV,
+    and its row count. A route is keyed (routing query, routing index,
+    voting points, routing index size); recall does not depend on the host
+    count."""
+    rec = {}
+    with open(path) as f:
+        assert len(f.readline().strip().split(",")) == 19
+        rows = 0
+        for line in f:
+            c = line.rstrip("\n").split(",")
+            assert len(c) == 19, c
+            rows += 1
+            rec[((c[2], c[3], int(c[5]), int(c[16])), int(c[4]),
+                 int(c[7]))] = float(c[8])
+    return rec, rows
+
+
+def _assert_monotone(values, what: str) -> None:
+    assert all(b >= a for a, b in zip(values, values[1:])), (what, values)
+
+
+def query_attribution(dev, pts: np.ndarray, q: np.ndarray, shipped: dict,
+                      tag: str) -> dict:
+    """The query-attribution pipeline through the port's CLIs on ``dev``
+    (module docstring, path 3). ``shipped`` holds the shipped ``assign``
+    and ``gt_dists``. Returns the kernel launches of this path."""
+    import shutil
+    import tempfile
+
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.cli import oracle_recall, small_scale_queries
+    from gpann_tpu_torch.cli import partition as partition_cli
+    from gpann_tpu_torch.cli import query_attribution as qa_cli
+    from gpann_tpu_torch.core.metis_io import read_clusters, write_clusters
+    from gpann_tpu_torch.core.partition import (clusters_to_cover_csr,
+                                                partition_to_clusters)
+    from gpann_tpu_torch.core.pointset import read_ground_truth, write_points
+    from gpann_tpu_torch.eval.combination import deserialize_routes
+    from gpann_tpu_torch.eval.recall import kth_neighbor_distance, recall_from_ids
+    from gpann_tpu_torch.gp.overlap import (
+        apply_extra_assignments,
+        centroid_overlap_streamed,
+    )
+    from gpann_tpu_torch.gp.scale import gp_aggregates
+    from gpann_tpu_torch.search import bin_scan as bs
+
+    n = len(pts)
+    q = q[:QA_NQ]
+    dev_arg = ["--device", str(dev)]
+    secs = {}
+
+    def stage(name: str, t0: float) -> None:
+        secs[name] = time.perf_counter() - t0
+        log(f"query attribution: {name} {secs[name]:.3f} s {tag}")
+
+    scratch = tempfile.mkdtemp(prefix="gpann_qa_")
+    free = shutil.disk_usage(scratch).free
+    log(f"query attribution: scratch {scratch}, {free / 2**30:.1f} GiB free")
+    try:
+        assert free >= QA_FREE_BYTES, f"needs {QA_FREE_BYTES >> 30} GiB free"
+        path = lambda name: os.path.join(scratch, name)  # noqa: E731
+        base_f, query_f, gt_f = path("base.fbin"), path("queries.fbin"), path("gt.bin")
+
+        # ---- 1. inputs ----
+        t0 = time.perf_counter()
+        write_points(base_f, pts)
+        write_points(query_f, q)
+        assign = shipped["assign"]
+        gp_f = path(f"bench.k={SHARDS}.GP")
+        write_clusters(gp_f, partition_to_clusters(assign, SHARDS))
+        stage("write inputs", t0)
+
+        # ---- 2. overlapping cover of the shipped GP partition ----
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(QA_REP_SEED)
+        sub = np.sort(rng.choice(n, size=min(QA_REP_SUBSAMPLE, n // 2),
+                                 replace=False))
+        reps, rep_lbl = gp_aggregates(pts[sub], assign[sub], SHARDS,
+                                      QA_REPS_PER_SHARD * SHARDS, seed=SEED,
+                                      device=dev)
+        cap2 = int((1.0 + EPS) * (1.0 + QA_OVERLAP) * n / SHARDS)
+        ep, ec = centroid_overlap_streamed(
+            pts, assign, reps, rep_lbl, SHARDS, cap2, int(QA_OVERLAP * n),
+            device=dev)
+        cover = apply_extra_assignments(partition_to_clusters(assign, SHARDS),
+                                        ep, ec)
+        cover_f = path(f"bench.k={SHARDS}.OGP.o={QA_OVERLAP}")
+        write_clusters(cover_f, cover)
+        stage("overlap cover", t0)
+        sizes = np.asarray([len(c) for c in cover])
+        log(f"overlap cover: {len(reps)} representatives, {sizes.sum()} "
+            f"assignments of {n} points, largest cluster {sizes.max()} "
+            f"(cap {cap2}), smallest {sizes.min()}")
+        assert sizes.max() <= cap2 and n <= sizes.sum() <= (1 + QA_OVERLAP) * n
+        del cover, ep, ec
+
+        # ---- 3. the O* partitioners on a prefix, through the CLI ----
+        prefix = min(QA_PREFIX, n)
+        bound = int((1.0 + EPS) * prefix / SHARDS)
+        for method in QA_METHODS:
+            t0 = time.perf_counter()
+            assert partition_cli.main(
+                [base_f, path("prefix"), str(SHARDS), method, str(QA_OVERLAP),
+                 "l2", str(prefix)] + dev_arg) == 0
+            stage(f"partition {method}", t0)
+            got = read_clusters(path(f"prefix.k={SHARDS}.{method}.o={QA_OVERLAP}"))
+            sizes = np.asarray([len(c) for c in got])
+            covered = len(np.unique(np.concatenate(got)))
+            log(f"{method} on {prefix} rows: {len(got)} clusters, largest "
+                f"{sizes.max()} (bound {bound}), {sizes.sum()} assignments, "
+                f"{covered} points covered")
+            assert sizes.max() <= bound and covered == prefix
+            assert sizes.sum() <= prefix + int(QA_OVERLAP * prefix)
+
+        # ---- 4. query attribution (ground truth through kernel B2) ----
+        out = path("qa")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        assert qa_cli.main([base_f, query_f, gt_f, str(K), cover_f,
+                            str(SHARDS), out, "OGP", "l2", QA_BUDGETS]
+                           + dev_arg) == 0
+        stage("query attribution CLI", t0)
+        launches = dict(kernels.LAUNCHES)
+        log(f"launches on the query-attribution path: {launches}")
+        assert launches["binmin_scan"] > 0, launches
+        # kernel B2 against its plain version at the shape the GT scan gave it
+        q_dev, base = (torch.from_numpy(x).to(dev) for x in (q, pts))
+        zeros = torch.zeros(len(q), dtype=torch.int64, device=dev)
+        err = compare_bins(bs.binmin_scan(q_dev, base, n),
+                           bs.binmin_scan_plain(q_dev, base, n), q_dev, base,
+                           zeros, "l2", id_rows=256)
+        log(f"kernel vs plain binmin_scan l2 [{len(q)} x {n} x {pts.shape[1]}] "
+            f"(the QA ground truth's shape): max_abs_err {err:.3e} (rtol "
+            f"{RTOL}, atol {ATOL}) ok")
+        del q_dev, base, zeros
+        torch.cuda.empty_cache()
+        gt_ids, _ = read_ground_truth(gt_f)
+        kth_shipped = kth_neighbor_distance(shipped["gt_dists"], K)[:QA_NQ]
+        gt_recall = recall_from_ids(pts, q, gt_ids[:, :K], kth_shipped, K)
+        log(f"fresh GT recall@10 against the shipped GT on {QA_NQ} queries "
+            f"{gt_recall:.6f} (need >= {GT_RECALL_MIN})")
+        assert gt_recall >= GT_RECALL_MIN
+        for ext in ("routes", "searches", "csv", "pareto"):
+            assert os.path.getsize(f"{out}.{ext}") > 0, ext
+        rec, rows = _qa_csv_recalls(out + ".csv")
+        pareto = sum(1 for _ in open(out + ".pareto")) - 1
+        routes = sorted({key for key, _, _ in rec})
+        efs = sorted({ef for _, ef, _ in rec})
+        probes = sorted({p for _, _, p in rec})
+        for key in routes:
+            for ef in efs:
+                _assert_monotone([rec[(key, ef, p)] for p in probes],
+                                 (key, "ef", ef))
+            for p in probes:
+                _assert_monotone([rec[(key, ef, p)] for ef in efs],
+                                 (key, "nprobes", p))
+        best = max(rec.values())
+        log(f"query attribution CSV: {rows} rows, {pareto} Pareto rows, "
+            f"{len(routes)} routes x ef_search {efs} x {len(probes)} nprobes; "
+            f"recall monotone in nprobes and in ef_search; highest recall "
+            f"{best:.5f}")
+
+        # ---- 5. oracle recall: the CLI, and every route's curve ----
+        t0 = time.perf_counter()
+        assert oracle_recall.main([gt_f, out + ".routes", str(K), cover_f,
+                                   "OGP", path("oracle.csv")]) == 0
+        csr = clusters_to_cover_csr(read_clusters(cover_f), n)
+        gaps = {p: [] for p in QA_ORACLE_PROBES}
+        for r in deserialize_routes(out + ".routes"):
+            key = (r.routing_algorithm, r.index_trainer,
+                   r.hnsw_num_voting_neighbors, r.index_size_bytes)
+            curve = oracle_recall.recall_for_increasing_probes(
+                list(r.buckets_to_probe), csr, gt_ids, K, SHARDS)
+            for p in QA_ORACLE_PROBES:
+                for ef in efs:
+                    assert rec[(key, ef, p)] <= curve[p - 1] + QA_ORACLE_SLACK, (
+                        key, ef, p, rec[(key, ef, p)], curve[p - 1])
+                gaps[p].append(curve[p - 1] - rec[(key, efs[-1], p)])
+        stage("oracle recall", t0)
+        log(f"CSV recall <= oracle + {QA_ORACLE_SLACK} for every route, "
+            f"nprobes {QA_ORACLE_PROBES}, ef_search; oracle - CSV recall at "
+            f"ef_search {efs[-1]}: " + ", ".join(
+                f"nprobes {p} mean {np.mean(g):.5f} max {np.max(g):.5f}"
+                for p, g in gaps.items()))
+
+        # ---- 6. small-scale queries on the shipped GP partition ----
+        t0 = time.perf_counter()
+        ss_csv = path("small_scale.csv")
+        assert small_scale_queries.main([base_f, query_f, gt_f, str(K), gp_f,
+                                         ss_csv, "GP"] + dev_arg) == 0
+        stage("small scale CLI", t0)
+        curves = {}
+        with open(ss_csv) as f:
+            f.readline()
+            for line in f:
+                c = line.strip().split(",")
+                curves.setdefault((c[1], c[2]), []).append(
+                    (int(c[3]), float(c[7])))
+        for (router, engine), curve in curves.items():
+            curve.sort()
+            _assert_monotone([r for _, r in curve], (router, engine))
+            log(f"small scale {router} {engine}: recall@10 " + " ".join(
+                f"{p}:{r:.5f}" for p, r in curve if p in (1, 2, 4, 8, 32)))
+            if engine == "BruteForce":
+                assert curve[-1] == (SHARDS, curve[-1][1])
+                assert curve[-1][1] >= QA_SMALL_BRUTE_MIN, curve[-1]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    log("query attribution stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; total {sum(secs.values()):.3f} {tag}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -452,13 +692,17 @@ def main() -> int:
     del engine, base, scan, qrows, row_off, sizes
     torch.cuda.empty_cache()
     build_launches = cold_build(dev, pts, q, shipped, tag)
+    torch.cuda.empty_cache()
+
+    # ---- query attribution through the port's CLIs ----
+    qa_launches = query_attribution(dev, pts, q, shipped, tag)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # launches: the serve path's run plus the cold-build path's run
+    # launches: the serve, cold-build and query-attribution paths' runs
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],
-         "launches": launches[name] + build_launches[name],
+         "launches": launches[name] + build_launches[name] + qa_launches[name],
          "max_abs_err": stats[name][0], "ms": stats[name][1],
          "plain_ms": stats[name][2]}
         for name in ("binmin_scan", "bintop2_blocks")]}), flush=True)

@@ -11,8 +11,7 @@ Usage:
 to run on the CPU.
 
 Methods: GP, Pyramid, OurPyramid, KMeans, BalancedKMeans, FlatKMeans, RKM,
-Random. The overlapping methods (OGP, OGPS, OKM, OBKM, ORKM) are not in the
-port yet and fail.
+Random, and the overlapping OGP, OGPS, OKM, OBKM, ORKM (overlap default 0.2).
 
 ``strong`` selects the reference's strong graph-builder preset (FANOUT=5,
 REPETITIONS=5). Balance epsilon is fixed at 0.05 (``partition.cpp:88``). The
@@ -25,36 +24,12 @@ from __future__ import annotations
 import sys
 
 import numpy as np
-import torch
 
+from gpann_tpu_torch.cli import pop_device, resolve_device
 from gpann_tpu_torch.core.metis_io import write_clusters
 from gpann_tpu_torch.core.pointset import read_points
 
 EPS = 0.05  # partition.cpp:88
-
-
-def _pop_device(argv: list) -> str:
-    """Remove ``--device X`` / ``--device=X`` from ``argv``; return X."""
-    for i, arg in enumerate(argv):
-        if arg == "--device":
-            if i + 1 == len(argv):
-                raise SystemExit("--device needs a value")
-            device = argv[i + 1]
-            del argv[i : i + 2]
-            return device
-        if arg.startswith("--device="):
-            del argv[i]
-            return arg.split("=", 1)[1]
-    return "cuda"
-
-
-def resolve_device(name: str) -> torch.device:
-    """``name`` as a torch device; a CUDA device without a GPU raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA GPU is available; pass "
-                           "--device cpu to partition on the CPU")
-    return device
 
 
 def run_method(points, k, method, eps=EPS, overlap=0.0, metric="l2", seed=555,
@@ -70,7 +45,7 @@ def run_method(points, k, method, eps=EPS, overlap=0.0, metric="l2", seed=555,
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = _pop_device(argv)
+    device = pop_device(argv)
     if len(argv) < 4:
         print(__doc__)
         return 2

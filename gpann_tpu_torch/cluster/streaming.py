@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gpann_tpu_torch.cluster.kmeans import _segment_sum
 from gpann_tpu_torch.core.distances import Metric, pairwise_distances, to_device
 
 
@@ -38,8 +39,7 @@ def _chunk_stats(chunk: torch.Tensor, centroids: torch.Tensor, k: int,
                  metric: Metric):
     """(per-centroid sums [k, d], counts [k], assignment int32) of a chunk."""
     assign = pairwise_distances(chunk, centroids, metric).argmin(dim=1)
-    sums = torch.zeros((k, chunk.shape[1]), device=chunk.device).index_add_(
-        0, assign, chunk)
+    sums = _segment_sum(chunk, assign, k, torch.float32)
     counts = torch.bincount(assign, minlength=k).float()
     return sums, counts, assign.to(torch.int32)
 

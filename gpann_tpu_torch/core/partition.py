@@ -99,6 +99,21 @@ def cover_to_csr(cover: Cover) -> tuple[np.ndarray, np.ndarray]:
     return indptr, indices
 
 
+def clusters_to_cover_csr(clusters: Clusters,
+                          n: int) -> tuple[np.ndarray, np.ndarray]:
+    """``cover_to_csr(clusters_to_cover(clusters, n))`` without the per-point
+    list: (indptr [n+1] int64, shard ids int32), each point's shards in
+    ascending order."""
+    sizes = np.asarray([len(c) for c in clusters], np.int64)
+    if sizes.sum() == 0:
+        return np.zeros(n + 1, np.int64), np.empty(0, np.int32)
+    pts = np.concatenate([np.asarray(c, np.int64) for c in clusters])
+    parts = np.repeat(np.arange(len(clusters), dtype=np.int32), sizes)
+    order = np.argsort(pts, kind="stable")
+    indptr = np.searchsorted(pts[order], np.arange(n + 1)).astype(np.int64)
+    return indptr, parts[order]
+
+
 def csr_gather(indptr: np.ndarray, indices: np.ndarray,
                row_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Ragged gather: concatenated CSR rows of ``row_ids``.

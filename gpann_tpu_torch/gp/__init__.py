@@ -1,9 +1,17 @@
 """Graph-partitioning layer: the balanced multilevel partitioner, the flat
-partitioning methods and GP at scale (counterpart of ``gpann_tpu/gp``; the
-overlapping methods are not in the port yet)."""
+and overlapping partitioning methods and GP at scale (counterpart of
+``gpann_tpu/gp``)."""
 
 from gpann_tpu_torch.gp import api
 from gpann_tpu_torch.gp.lp import partition_graph
+from gpann_tpu_torch.gp.overlap import (
+    apply_extra_assignments,
+    centroid_overlap_streamed,
+    foreign_cluster_candidates,
+    make_overlapping_with_centroids,
+    overlapping_graph_partitioning,
+    overlapping_kmeans_partitioning_spann,
+)
 from gpann_tpu_torch.gp.partitioning import (
     balanced_kmeans_partitioning,
     flat_kmeans_partitioning,

@@ -1,21 +1,24 @@
-"""Method-name dispatch for the partitioning algorithms (counterpart of
+"""Method-name dispatch for all partitioning algorithms (counterpart of
 ``gpann_tpu/gp/api.py``; vocabulary of ``partition.cpp:64-137``).
 
-The port has the eight non-overlapping methods: GP, Pyramid, OurPyramid,
-KMeans, BalancedKMeans, FlatKMeans, RKM, Random. The overlapping methods
-(OGP, OGPS, OKM, OBKM, ORKM, and GP with overlap != 0, which aliases to OGP
-as in ``partition.cpp:84-86``) are not in the port yet and raise.
+GP, Pyramid, OurPyramid, KMeans, BalancedKMeans, FlatKMeans, RKM, Random
+plus overlapping: OGP, OGPS, OKM, OBKM, ORKM. ``GP`` with overlap != 0
+aliases to OGP (``partition.cpp:84-86``).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from gpann_tpu_torch.core.distances import Metric
 from gpann_tpu_torch.core.partition import Clusters, partition_to_clusters
+from gpann_tpu_torch.gp import overlap as ov
 from gpann_tpu_torch.gp import partitioning as pt
 
-METHODS = ("GP", "Pyramid", "OurPyramid", "KMeans", "BalancedKMeans",
-           "FlatKMeans", "RKM", "Random")
-OVERLAPPING_METHODS = ("OGP", "OGPS", "OKM", "OBKM", "ORKM")
+METHODS = (
+    "GP", "Pyramid", "OurPyramid", "KMeans", "BalancedKMeans", "FlatKMeans",
+    "RKM", "Random", "OGP", "OGPS", "OKM", "OBKM", "ORKM",
+)
 
 
 def partition(
@@ -38,9 +41,6 @@ def partition(
     n = points.shape[0]
     if method == "GP" and overlap != 0.0:
         method = "OGP"  # partition.cpp:84-86
-    if method in OVERLAPPING_METHODS:
-        raise ValueError(f"overlapping method {method!r} is not in the "
-                         f"PyTorch port yet; supported: {METHODS}")
     if method == "Random":
         return partition_to_clusters(pt.random_partition(n, k, seed), k)
     if method == "GP":
@@ -73,5 +73,35 @@ def partition(
         return partition_to_clusters(
             pt.rebalancing_kmeans_partitioning(points, max_size, k, metric,
                                                seed, device=device))
+    if method == "OGP":
+        return ov.overlapping_graph_partitioning(
+            points, k, eps, overlap, strong, metric, seed, device=device)
+    if method == "OGPS":
+        # GP into adjusted cluster count, then centroid overlap
+        # (partition.cpp:113-120)
+        max_size = int((1.0 + eps) * n / k)
+        k_adj = int(np.ceil((n + overlap * n) / max_size))
+        base = pt.graph_partitioning(points, k_adj, eps, False, metric, seed,
+                                     device=device)
+        return ov.overlapping_kmeans_partitioning_spann(
+            points, base, k, eps, overlap, metric, seed, device=device)
+    if method == "OKM":
+        base = pt.kmeans_partitioning(points, k, eps, metric, seed,
+                                      device=device)
+        return ov.overlapping_kmeans_partitioning_spann(
+            points, base, k, eps, overlap, metric, seed, device=device)
+    if method == "OBKM":
+        k_adj = int(np.ceil(k * (1.0 + overlap)))  # partition.cpp:129-135
+        base = pt.balanced_kmeans_partitioning(points, k_adj, eps, metric,
+                                               seed, device=device)
+        return ov.overlapping_kmeans_partitioning_spann(
+            points, base, k, eps, overlap, metric, seed, device=device)
+    if method == "ORKM":
+        max_size = int((1.0 + eps) * n / k)
+        k_adj = int(np.ceil(k * (1.0 + overlap)))  # partition.cpp:104-108
+        base = pt.rebalancing_kmeans_partitioning(points, max_size, k_adj,
+                                                  metric, seed, device=device)
+        return ov.overlapping_kmeans_partitioning_spann(
+            points, base, k, eps, overlap, metric, seed, device=device)
     raise ValueError(f"unsupported partitioning method {method!r}; "
                      f"supported: {METHODS}")

@@ -4,7 +4,7 @@
 Blob data is drawn with numpy and handed to both packages; both draw their
 initial centroids and samples from the same ``np.random.default_rng`` seeds.
 Assignments and parts must be identical, centroids agree at rtol = atol =
-1e-4 (f32 sums in another order), objectives at 1e-4 relative; balanced
+1e-4 (the port's Lloyd sums in f64), objectives at 1e-4 relative; balanced
 k-means, whose batched moves can tip differently, is held to its balance
 bound and to the JAX objective within 1e-3 relative.
 """
@@ -92,6 +92,33 @@ def test_balanced_kmeans_bound_and_objective(metric, train_sample):
     want = jk.objective_value(pts, wc, wa, metric)
     got = tk.objective_value(pts, gc, ga, metric, device="cpu")
     assert got == pytest.approx(want, rel=1e-3)
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+def test_final_centroids_sum_as_np_add_at(pts, metric):
+    """The port's per-dimension ``np.bincount`` sums give the JAX package's
+    ``np.add.at`` centroids bit for bit."""
+    assign = np.random.default_rng(3).integers(0, 9, len(pts))
+    assign[assign == 4] = 5  # an empty cluster
+    gc, gs = tk._final_centroids(pts, assign, 9, metric)
+    wc, ws = jk._final_centroids(pts, assign, 9, metric)
+    np.testing.assert_array_equal(gc, wc)
+    np.testing.assert_array_equal(gs, ws)
+
+
+def test_segment_sum_adds_in_index_order(pts):
+    """On the CPU the segment sum adds in index order, as ``np.add.at`` does:
+    bit-equal in f64 and in f32, rows and scalars alike."""
+    assign = np.random.default_rng(4).integers(0, 7, len(pts))
+    idx = torch.from_numpy(assign)
+    for dtype, np_dtype in ((torch.float64, np.float64),
+                            (torch.float32, np.float32)):
+        for vals in (pts, pts[:, 0].copy()):
+            want = np.zeros((7,) + vals.shape[1:], np_dtype)
+            np.add.at(want, assign, vals.astype(np_dtype))
+            got = tk._segment_sum(torch.from_numpy(vals), idx, 7, dtype)
+            assert got.dtype == dtype
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_capacity_assignment_and_rebalance_match(pts):

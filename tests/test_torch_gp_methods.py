@@ -96,10 +96,18 @@ def test_partition_methods(method_case, jax_native, method):
 @pytest.mark.parametrize("method,overlap", [("OGP", 0.2), ("OGPS", 0.2),
                                             ("OKM", 0.2), ("OBKM", 0.2),
                                             ("ORKM", 0.2), ("GP", 0.1)])
-def test_overlapping_methods_raise(method, overlap):
-    with pytest.raises(ValueError, match="not in the PyTorch port"):
-        tapi.partition(np.zeros((50, 4), np.float32), 4, method,
-                       overlap=overlap, device="cpu")
+def test_overlapping_methods_dispatch(method, overlap):
+    """The overlapping methods dispatch by name (their parity with the JAX
+    package is in test_torch_overlap.py): each returns a cover within the
+    capacity bound, and a misspelt name raises."""
+    pts = blobs(400, d=4)
+    got = tapi.partition(pts, 4, method, overlap=overlap, device="cpu")
+    sizes = [len(c) for c in got]
+    assert max(sizes) <= int(1.05 * 400 / 4)
+    assert 400 <= sum(sizes) <= 400 + int(overlap * 400)
+    assert len(np.unique(np.concatenate(got))) == 400
+    with pytest.raises(ValueError, match="unsupported partitioning method"):
+        tapi.partition(pts, 4, method.lower(), overlap=overlap, device="cpu")
 
 
 def test_subsample_gp_partition(jax_native):
@@ -134,6 +142,9 @@ def test_cli_writes_the_jax_file(tmp_path, method):
 
 
 def test_cli_refuses_cuda_without_gpu_and_overlapping_methods(tmp_path):
+    """``--device cuda`` (the default) raises without a GPU; an overlapping
+    method writes its ``.o=<overlap>`` cover; an unknown method raises."""
+    from gpann_tpu_torch.core.metis_io import read_clusters
     from gpann_tpu_torch.core.pointset import write_points
 
     path = str(tmp_path / "pts.fbin")
@@ -141,5 +152,9 @@ def test_cli_refuses_cuda_without_gpu_and_overlapping_methods(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             tcli.main([path, str(tmp_path / "out"), "4", "Random"])
-    with pytest.raises(ValueError, match="not in the PyTorch port"):
-        tcli.main([path, str(tmp_path / "out"), "4", "OKM", "--device=cpu"])
+    assert tcli.main([path, str(tmp_path / "out"), "4", "OKM",
+                      "--device=cpu"]) == 0
+    sizes = [len(c) for c in read_clusters(str(tmp_path / "out.k=4.OKM.o=0.2"))]
+    assert max(sizes) <= int(1.05 * 200 / 4) and 200 < sum(sizes) <= 240
+    with pytest.raises(ValueError, match="unsupported partitioning method"):
+        tcli.main([path, str(tmp_path / "out"), "4", "okm", "--device=cpu"])

@@ -103,18 +103,56 @@ def test_knn_graph_and_gt_same_on_cuda(cuda):
 
 @pytest.mark.gpu
 def test_tree_router_same_on_cuda(cuda):
+    """The router's k-means meets near ties (more centroids than blobs); it
+    runs in f64 with sums in a fixed order, so the card repeats itself
+    exactly, in the default (not the deterministic) mode, and gives the
+    CPU's router."""
     from gpann_tpu_torch.route import KMeansTreeRouter, KMeansTreeRouterOptions
 
     pts = blobs(8000)
     clusters = [np.arange(s, 8000, 4) for s in range(4)]
     opts = KMeansTreeRouterOptions(num_centroids=8, min_cluster_size=40,
                                    budget=300, search_budget=120)
+    assert not torch.are_deterministic_algorithms_enabled()
     want = KMeansTreeRouter(device="cpu").train(pts, clusters, opts)
     got = KMeansTreeRouter(device=cuda).train(pts, clusters, opts)
+    again = KMeansTreeRouter(device=cuda).train(pts, clusters, opts)
+    np.testing.assert_array_equal(again.points, got.points)
     assert len(got.points) == len(want.points)
     np.testing.assert_allclose(got.points, want.points, **TOL)
     q = pts[:64] + 0.05
     np.testing.assert_array_equal(got.query_budgeted(q), want.query_budgeted(q))
+
+
+@pytest.mark.gpu
+def test_segment_sum_repeats_on_cuda(cuda):
+    """k-means' segment sums add in a fixed order on the card (no atomics):
+    two calls are bit-equal, and the f64 sums agree with the CPU's."""
+    from gpann_tpu_torch.cluster.kmeans import _segment_sum
+
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(rng.standard_normal((200_000, 16)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 9, len(vals)))
+    for dtype in (torch.float64, torch.float32):
+        a = _segment_sum(vals.to(cuda), idx.to(cuda), 9, dtype)
+        b = _segment_sum(vals.to(cuda), idx.to(cuda), 9, dtype)
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(
+        _segment_sum(vals.to(cuda), idx.to(cuda), 9).cpu().numpy(),
+        _segment_sum(vals, idx, 9).numpy(), rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_balanced_kmeans_repeats_on_cuda(cuda):
+    """Balanced k-means (the two-level index's sub-clusters) gives the same
+    centroids and assignment in two runs on the card."""
+    from gpann_tpu_torch.cluster.kmeans import balanced_kmeans
+
+    pts = blobs(20_000, kb=5)
+    gc, ga = balanced_kmeans(pts, 12, device=cuda)
+    hc, ha = balanced_kmeans(pts, 12, device=cuda)
+    np.testing.assert_array_equal(ha, ga)
+    np.testing.assert_array_equal(hc, gc)
 
 
 @pytest.mark.gpu
