@@ -25,7 +25,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl"]
 
 # launches per entry point (see module docstring)
 LAUNCHES = {"binmin_scan": 0, "bintop2_blocks": 0}
@@ -80,7 +80,8 @@ def library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bintop2_blocks.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.bintop2_blocks.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                   ctypes.c_longlong, i, p]
     lib.bintop2_blocks.restype = i
     return lib
 
@@ -103,6 +104,13 @@ def bintop2(queries: torch.Tensor, base: torch.Tensor, row_off: torch.Tensor,
     [nb*qb, 2*cap/128] as ``[min1 | min2]`` halves.
 
     ``entry`` names the wrapper whose launch count this call adds to.
+
+    The kernel reads ``base`` in place when its rows are 16-byte aligned
+    (``d % 4 == 0``, as at every shape the serving and build paths use). For
+    another ``d`` this call copies the queries and the whole base into
+    zero-padded columns first: one more read and write of the base and a
+    transient second copy in device memory, on every call. A caller that
+    scans a large resident base at such a ``d`` should pad it once itself.
     """
     _check(queries, "queries", torch.float32, 2)
     _check(base, "base", torch.float32, 2)
@@ -117,15 +125,32 @@ def bintop2(queries: torch.Tensor, base: torch.Tensor, row_off: torch.Tensor,
         raise ValueError(f"sizes has {sizes.shape[0]} entries, row_off {nb}")
     if cap % 128 or cap <= 0:
         raise ValueError(f"cap={cap} must be a positive multiple of 128")
-    if not 0 < nb <= 65535:
-        raise ValueError(f"{nb} blocks; the kernel takes 1..65535")
-    if -(-qb // 64) * (cap // 128) >= 2**31:
-        raise ValueError(f"qb={qb}, cap={cap}: grid too large")
+    if nb <= 0 or qb <= 0 or nb * qb >= 2**31:
+        raise ValueError(f"{nb} blocks x {qb} queries; the kernel takes "
+                         "1 <= nb * qb < 2^31 query rows")
+    if base.shape[0] + cap >= 2**31:
+        raise ValueError(f"{base.shape[0]} base rows + cap {cap} must stay "
+                         "under 2^31 (TMA row coordinates are int32)")
+    if d == 0:
+        raise ValueError("points have no dimensions")
     if metric not in ("l2", "mips"):
         raise ValueError(f"unknown metric {metric!r}")
     dev = queries.device
     if not (base.device == row_off.device == sizes.device == dev):
         raise ValueError("all inputs must be on one device")
+    # TMA needs 16-byte-aligned rows: a d that is no multiple of 4 is copied
+    # into zero-padded columns for this call, a misaligned view is cloned
+    if d % 4:
+        pad = (0, 4 - d % 4)
+        queries = torch.nn.functional.pad(queries, pad)
+        base = torch.nn.functional.pad(base, pad)
+        d = base.shape[1]
+    if queries.data_ptr() % 16:
+        queries = queries.clone()
+    if base.data_ptr() % 16:
+        base = base.clone()
+    if base.shape[0] == 0:  # a map needs one row; every window is empty
+        base = base.new_zeros((1, d))
     L = cap // 128
     mins = torch.empty((nb * qb, 2 * L), dtype=torch.float32, device=dev)
     argmins = torch.empty((nb * qb, 2 * L), dtype=torch.int32, device=dev)
@@ -134,8 +159,11 @@ def bintop2(queries: torch.Tensor, base: torch.Tensor, row_off: torch.Tensor,
         err = library().bintop2_blocks(
             queries.data_ptr(), base.data_ptr(), row_off.data_ptr(),
             sizes.data_ptr(), mins.data_ptr(), argmins.data_ptr(),
-            nb, qb, cap, d, int(metric == "mips"), stream)
+            nb, qb, cap, d, base.shape[0], int(metric == "mips"), stream)
     if err != 0:
-        raise RuntimeError(f"bintop2 launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"bintop2 launch failed: " + (f"CUDA error {err}" if err > 0 else
+                                          f"tensor map not encoded or too few "
+                                          f"registers ({err}; see bintop2.cu)"))
     LAUNCHES[entry] += 1
     return mins, argmins

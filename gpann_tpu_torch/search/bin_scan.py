@@ -11,7 +11,9 @@ share one bin, so ``BIN`` decides recall and stays 128.
 Phase 1 has two implementations with one contract:
 
 - the hand-written CUDA kernel ``csrc/bintop2.cu`` (via
-  :mod:`gpann_tpu_torch.kernels`), taken for CUDA tensors;
+  :mod:`gpann_tpu_torch.kernels`), taken for CUDA tensors; its product runs
+  on the tensor cores in split TF32 (``split_tf32_dots`` rehearses that
+  arithmetic on the CPU), its norms in f32;
 - the plain PyTorch version (``binmin_scan_plain``,
   ``bintop2_blocks_plain``), taken for CPU tensors only. It walks the base
   in column chunks so that it fits in memory at bench shapes.
@@ -49,10 +51,41 @@ def _is_cuda(t: torch.Tensor) -> bool:
 
 # -- plain PyTorch version of the kernel ---------------------------------------
 
+def split_tf32(x: torch.Tensor, rounding: str = "nearest"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (f32) as ``hi + lo`` of TF32 values (10-bit mantissa, low 13 bits
+    zero), the way the CUDA kernel splits a tile: ``hi`` is ``x`` rounded to
+    nearest with ties away from zero, or cut ("truncate", what a tensor core
+    that ignores the low bits would make of the raw word); ``lo`` is
+    ``x - hi`` cut. Used by tests and ``chip_smoke.py`` only."""
+    if rounding not in ("nearest", "truncate"):
+        raise ValueError(f"unknown rounding {rounding!r}")
+    bits = x.contiguous().view(torch.int32)
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    hi = (bits & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def split_tf32_dots(q: torch.Tensor, rows: torch.Tensor,
+                    rounding: str = "nearest", passes: int = 3) -> torch.Tensor:
+    """``q @ rows.T`` as the kernel's tensor-core product: lo*hi + hi*lo +
+    hi*hi summed in f32 (``passes=3``), or the single TF32 product hi*hi
+    (``passes=1``). A rehearsal of the arithmetic, never on the main path."""
+    qh, ql = split_tf32(q, rounding)
+    rh, rl = split_tf32(rows, rounding)
+    if passes == 1:
+        return qh @ rh.T
+    return (ql @ rh.T + qh @ rl.T) + qh @ rh.T
+
+
 def _bin_top2_plain(q: torch.Tensor, rows: torch.Tensor, n_live: int, cap: int,
-                    metric: Metric) -> Tuple[torch.Tensor, torch.Tensor]:
+                    metric: Metric, dots_fn=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bin top-2 of ``q`` [m, d] over a window of ``cap`` rows whose first
-    ``n_live`` are ``rows[:n_live]`` and the rest are dead (+inf)."""
+    ``n_live`` are ``rows[:n_live]`` and the rest are dead (+inf).
+    ``dots_fn(q, rows)`` replaces the f32 product (see ``split_tf32_dots``)."""
     m = q.shape[0]
     L = cap // BIN
     mins = torch.empty((m, 2 * L), dtype=torch.float32, device=q.device)
@@ -64,7 +97,7 @@ def _bin_top2_plain(q: torch.Tensor, rows: torch.Tensor, n_live: int, cap: int,
         dm = torch.full((m, c1 - c0), torch.inf, device=q.device)
         blk = rows[c0 : max(c0, min(c1, n_live))]
         if blk.shape[0]:
-            dots = q @ blk.T
+            dots = q @ blk.T if dots_fn is None else dots_fn(q, blk)
             if metric == "mips":
                 dm[:, : blk.shape[0]] = 1.0 - dots
             else:
@@ -87,10 +120,11 @@ def _bin_top2_plain(q: torch.Tensor, rows: torch.Tensor, n_live: int, cap: int,
 
 
 def binmin_scan_plain(qs: torch.Tensor, base: torch.Tensor, n_valid,
-                      metric: Metric = "l2") -> Tuple[torch.Tensor, torch.Tensor]:
+                      metric: Metric = "l2", dots_fn=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch :func:`binmin_scan` (same inputs, same outputs)."""
     cap = _round_up(max(base.shape[0], 1), BIN)
-    return _bin_top2_plain(qs, base, int(n_valid), cap, metric)
+    return _bin_top2_plain(qs, base, int(n_valid), cap, metric, dots_fn)
 
 
 def bintop2_blocks_plain(queries_blocks: torch.Tensor, base_flat: torch.Tensor,

@@ -168,7 +168,8 @@ class ServingEngine:
         voting_impl: str = "exact",
         scan_phase2: str = "exact",
         scan_nc: int = 0,
-        device="cpu",
+        *,
+        device,
     ) -> None:
         """``scan_mode``: "exact" = matmul + top-k over each shard window;
         "binned" = the bin-top-2 scan (CUDA kernel on a CUDA device).
@@ -180,8 +181,9 @@ class ServingEngine:
         ``scan_phase2`` / ``scan_nc``: candidate-bin selection and count of
         the binned scan (see :func:`fused_topk_blocks`).
 
-        ``device`` is explicit: the engine's arrays live there and every
-        batch runs there. Nothing moves to another device on its own.
+        ``device`` is required (as for every module of the package; the
+        CLIs pass ``cuda``): the engine's arrays live there and every batch
+        runs there. Nothing moves to another device on its own.
         """
         s = len(clusters)
         sizes = np.asarray([len(c) for c in clusters], np.int32)
@@ -222,8 +224,8 @@ class ServingEngine:
         self._load(arrays, config, device)
 
     @classmethod
-    def from_state(cls, arrays: dict, config: dict,
-                   device="cpu") -> "ServingEngine":
+    def from_state(cls, arrays: dict, config: dict, *,
+                   device) -> "ServingEngine":
         """An engine on ``device`` from another engine's state.
 
         ``arrays`` maps the JAX engine's attribute names (``shard_points``,
@@ -423,12 +425,15 @@ class ServingEngine:
                     rule: str = "min_dist", query_block: int = 1024,
                     spann_eps: float = 0.6):
         """Route and group one batch and return what the binned scan gets:
-        ``(query rows [total, d], window row offsets [nb], live sizes [nb])``
-        — for measuring the scan alone at serving shapes."""
+        ``(query rows [total, d], window row offsets [nb], live sizes [nb])``,
+        and with them the count [nb] of each block's rows that hold a real
+        (query, probe) pair, the rest being padding — for measuring the scan
+        alone at serving shapes."""
         queries = self._queries(queries)
         probes = self._route(queries, nprobes, voting_t, rule, spann_eps)
-        return self._scan_blocks(
-            queries, _group(probes, self.num_shards, query_block), query_block)
+        g = _group(probes, self.num_shards, query_block)
+        live_q = (g.pair_q.view(-1, query_block) < queries.shape[0]).sum(dim=1)
+        return (*self._scan_blocks(queries, g, query_block), live_q)
 
     def probe_order(self, queries, nprobes: int, voting_t: int = 60,
                     rule: str = "min_dist", spann_eps: float = 0.6) -> np.ndarray:

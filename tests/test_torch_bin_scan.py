@@ -198,6 +198,83 @@ def test_wrappers_check_inputs(blocks_case):
         tbs.binmin_scan(q.to("meta"), b.to("meta"), 10)
 
 
+# -- the CUDA kernel's arithmetic, rehearsed on the CPU --------------------------
+
+SPLIT_TOL = dict(rtol=1e-4, atol=1e-3)   # the card's kernel-vs-plain tolerance
+
+
+@pytest.fixture(scope="module", params=[96, 100])
+def blob_case(request):
+    """Data drawn like the bench's: 64 Gaussian blobs, centres 2*N(0,1),
+    noise 0.6."""
+    d = request.param
+    rng = np.random.default_rng(555 + d)
+    centers = 2.0 * rng.standard_normal((64, d)).astype(np.float32)
+    base = (centers[rng.integers(0, 64, 4096)]
+            + 0.6 * rng.standard_normal((4096, d))).astype(np.float32)
+    qs = (centers[rng.integers(0, 64, 128)]
+          + 0.6 * rng.standard_normal((128, d))).astype(np.float32)
+    return qs, base
+
+
+def _dist64(qs, base, metric):
+    q, b = qs.astype(np.float64), base.astype(np.float64)
+    if metric == "mips":
+        return 1.0 - q @ b.T
+    return (q * q).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * q @ b.T
+
+
+def _dist_split(qs, base, metric, rounding, passes):
+    """Distances as the kernel forms them: f32 norms of the unsplit values,
+    the product from ``split_tf32_dots``."""
+    q, b = torch.from_numpy(qs), torch.from_numpy(base)
+    dots = tbs.split_tf32_dots(q, b, rounding, passes)
+    if metric == "mips":
+        return (1.0 - dots).numpy()
+    return ((q * q).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * dots).numpy()
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+def test_split_tf32_distances_hold_the_f32_tolerance(blob_case, metric, rounding):
+    qs, base = blob_case
+    hi, lo = tbs.split_tf32(torch.from_numpy(base), rounding)
+    for part in (hi, lo):   # TF32 values: the low 13 bits are zero
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    # hi + lo keeps 21+ bits of x
+    assert ((hi + lo).numpy() - base <= 2.0 ** -20 * np.abs(base)).all()
+    got = _dist_split(qs, base, metric, rounding, passes=3)
+    np.testing.assert_allclose(got, _dist64(qs, base, metric), **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+def test_single_tf32_pass_breaks_the_f32_tolerance(blob_case, metric):
+    qs, base = blob_case
+    want = _dist64(qs, base, metric)
+    got = _dist_split(qs, base, metric, "nearest", passes=1)
+    bad = np.abs(got - want) > SPLIT_TOL["atol"] + SPLIT_TOL["rtol"] * np.abs(want)
+    assert bad.mean() > 0.01, bad.mean()
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+def test_fused_topk_on_split_tf32_summaries(blob_case, metric):
+    """Phase 1 in the kernel's arithmetic picks the candidates the f32
+    phase 1 picks: after the exact rescore the top-10 is the same."""
+    qs, base = blob_case
+    q, b = torch.from_numpy(qs), torch.from_numpy(base)
+    mins, ids = tbs.binmin_scan_plain(q, b, len(base), metric,
+                                      dots_fn=tbs.split_tf32_dots)
+    pm, _ = tbs.binmin_scan_plain(q, b, len(base), metric)
+    torch.testing.assert_close(mins, pm, **SPLIT_TOL)
+    sd, si = tbs._select_and_rescore(q, b, mins, ids, None, 10, 16, metric,
+                                     "exact")
+    fd, fi = tbs.fused_topk(q, b, len(base), 10, metric=metric)
+    torch.testing.assert_close(sd, fd, rtol=0, atol=0)
+    assert torch.equal(si, fi)
+    with pytest.raises(ValueError):
+        tbs.split_tf32(b, "stochastic")
+
+
 # -- the CUDA kernel (skips without a GPU) --------------------------------------
 
 @pytest.mark.gpu
@@ -216,6 +293,8 @@ def test_kernel_matches_plain_on_gpu(cuda_device, blocks_case, data, metric):
     assert torch.equal(fin, torch.isfinite(km))
     torch.testing.assert_close(km[fin], pm[fin], **TOL)
     assert (ka[fin] < 15000).all()
+    km2, ka2 = tbs.binmin_scan(q, b, 15000, metric)   # bit-repeatable
+    assert torch.equal(km, km2) and torch.equal(ka, ka2)
 
     fb, qrows, row_off, sizes, qb, cap = blocks_case
     args = (torch.from_numpy(qrows).to(cuda_device),
@@ -232,6 +311,68 @@ def test_kernel_matches_plain_on_gpu(cuda_device, blocks_case, data, metric):
     assert (ka[qb : 2 * qb] == 0).all()
 
 
+RAGGED = {
+    # name: (nb, qb, cap, d, sizes, row_off, base rows, metric)
+    "d100_qb96_empty_block": (3, 96, 1280, 100, [1280, 0, 77], [1280, 0, 2000],
+                              2560, "l2"),
+    "d17_qb8_padded_copy": (3, 8, 1280, 17, [1280, 5, 1279], [0, 640, 1000],
+                            2280, "mips"),
+    "size_eq_cap_window_at_base_end": (3, 300, 2560, 96, [2560, 1300, 1000],
+                                       [140, 0, 1700], 2700, "l2"),
+    "d200_streamed_query_tile": (2, 130, 1280, 200, [1280, 700], [0, 1280],
+                                 2560, "l2"),
+    "more_blocks_than_2x_sms": (301, 16, 640, 24, None, None, 5640, "l2"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(RAGGED))
+def test_kernel_ragged_shapes_on_gpu(cuda_device, name):
+    """Shapes the kernel's tiling can get wrong, against the plain version;
+    two launches give bit-equal summaries."""
+    nb, qb, cap, d, sizes, row_off, rows, metric = RAGGED[name]
+    rng = np.random.default_rng(7)
+    if sizes is None:
+        sizes = rng.integers(0, cap + 1, nb).tolist()
+        row_off = rng.integers(0, rows - cap, nb).tolist()
+    base = torch.from_numpy(
+        2 * rng.standard_normal((rows, d)).astype(np.float32)).to(cuda_device)
+    q = torch.from_numpy(
+        2 * rng.standard_normal((nb * qb, d)).astype(np.float32)).to(cuda_device)
+    ro = torch.tensor(row_off, dtype=torch.int64, device=cuda_device)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=cuda_device)
+    km, ka = tbs.bintop2_blocks(q, base, ro, sz, qb, cap, metric)
+    km2, ka2 = tbs.bintop2_blocks(q, base, ro, sz, qb, cap, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(km, km2) and torch.equal(ka, ka2)
+    # a window's cap may run past the base; those rows are dead
+    padded = torch.cat([base, base.new_zeros((cap, d))])
+    pm, _ = tbs.bintop2_blocks_plain(q, padded, ro, sz, qb, cap, metric)
+    fin = torch.isfinite(pm)
+    assert torch.equal(fin, torch.isfinite(km))
+    torch.testing.assert_close(km[fin], pm[fin], **SPLIT_TOL)
+    assert (ka < sz.repeat_interleave(qb)[:, None])[fin].all()
+    if metric == "l2":
+        _check_ids(km.cpu().numpy(), ka.cpu().numpy(), q.cpu().numpy(),
+                   padded.cpu().numpy(),
+                   np.repeat(np.asarray(row_off, np.int64), qb))
+
+
+@pytest.mark.gpu
+def test_kernel_ties_report_lowest_ids_on_gpu(cuda_device):
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.standard_normal((256, 96)).astype(np.float32))
+    base[7] = base[3]
+    base[100] = base[3]
+    base[200] = base[130]
+    base = base.to(cuda_device)
+    q = base[[3, 130]].repeat(64, 1).contiguous()
+    for metric in ("l2", "mips"):
+        m, a = tbs.binmin_scan(q, base, 256, metric)
+        assert a[0].tolist()[0::2] == [3, 7] and a[1].tolist()[1::2] == [130, 200]
+        assert m[0, 0] == m[0, 2] and m[1, 1] == m[1, 3]
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_bad_inputs(cuda_device):
     from gpann_tpu_torch import kernels
@@ -246,3 +387,24 @@ def test_kernel_rejects_bad_inputs(cuda_device):
         kernels.bintop2(q, b.t(), off, size, 128, 256, "l2", "binmin_scan")
     with pytest.raises(ValueError):
         kernels.bintop2(q, b, off, size, 128, 200, "l2", "binmin_scan")
+    with pytest.raises(ValueError):   # query rows != nb * qb
+        kernels.bintop2(q, b, off, size, 64, 256, "l2", "binmin_scan")
+    with pytest.raises(ValueError):   # TMA row coordinates are int32
+        kernels.bintop2(q, b, off, size, 128, 2**31 - 128, "l2", "binmin_scan")
+    with pytest.raises(ValueError):
+        kernels.bintop2(q, b, off, size, 128, 256, "cosine", "binmin_scan")
+    with pytest.raises(ValueError):   # CPU tensors never reach the kernel
+        kernels.bintop2(q.cpu(), b.cpu(), off.cpu(), size.cpu(), 128, 256,
+                        "l2", "binmin_scan")
+    before = dict(kernels.LAUNCHES)
+    # more probe blocks than the old grid's 65535, and a d that needs padding
+    nb = 70_000
+    mins, ids = kernels.bintop2(
+        torch.ones((nb, 3), device=cuda_device), torch.ones((256, 3), device=cuda_device),
+        torch.zeros(nb, dtype=torch.int64, device=cuda_device),
+        torch.full((nb,), 129, dtype=torch.int32, device=cuda_device), 1, 256,
+        "l2", "binmin_scan")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["binmin_scan"] == before["binmin_scan"] + 1
+    assert (mins[:, :2] == 0).all() and torch.isinf(mins[:, 3]).all()
+    assert (ids[:, 0] == 0).all() and (ids[:, 2] == 1).all() and (ids[:, 1] == 128).all()

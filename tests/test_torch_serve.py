@@ -98,7 +98,8 @@ def test_slice_binned_serve_matches_jax(slice_case):
         assert rec_t == recall_from_ids(pts, q, ji, kth, 10)
     assert rec_t > 0.97  # every shard probed: only bin collisions lose
     # the port's own constructor (no TPU padding) serves the same results
-    own = ServingEngine(pts, clusters, rpts, rlbl, scan_mode="binned")
+    own = ServingEngine(pts, clusters, rpts, rlbl, scan_mode="binned",
+                        device="cpu")
     assert own.capacity % 128 == 0 and own.capacity < jeng.capacity
     od, oi = own.serve(q, k=10, nprobes=3, voting_t=8, query_block=16)
     np.testing.assert_allclose(od, td, **TOL)
@@ -181,7 +182,7 @@ def test_serve_scan_matches_serve(setup):
 def test_own_constructor_matches_jax_state(setup):
     pts, q, kth, clusters, router, jeng = setup
     own = ServingEngine(pts, clusters, np.asarray(router.points),
-                        router.labels_np, pad_multiple=128)
+                        router.labels_np, pad_multiple=128, device="cpu")
     np.testing.assert_array_equal(own.shard_points.numpy(),
                                   np.asarray(jeng.shard_points))
     np.testing.assert_array_equal(own.shard_ids.numpy(),
@@ -197,7 +198,7 @@ def test_binned_tiny_shards_take_exact_scan(setup):
     pts, q, kth, clusters, router, jeng = setup
     rp, rl = np.asarray(router.points), router.labels_np
     binned = ServingEngine(pts, clusters, rp, rl, pad_multiple=128,
-                           scan_mode="binned")
+                           scan_mode="binned", device="cpu")
     assert not binned._binned(10)
     _, fi = binned.serve(q[:16], k=10, nprobes=8, voting_t=8, query_block=16)
     assert recall_from_ids(pts, q[:16], fi, kth[:16], 10) == 1.0
@@ -235,10 +236,26 @@ def test_engine_rejects_unknown_options(setup):
     pts, q, kth, clusters, router, jeng = setup
     with pytest.raises(ValueError):
         ServingEngine(pts, clusters, np.asarray(router.points),
-                      router.labels_np, scan_mode="dense")
+                      router.labels_np, scan_mode="dense", device="cpu")
     teng = port(jeng)
     with pytest.raises(ValueError):
         teng.probe_order(q, 2, rule="nearest")
+
+
+def test_engine_device_is_required(setup):
+    """No engine comes up on the CPU by default: ``device`` has to be named,
+    for the constructor and for ``from_state`` alike."""
+    pts, q, kth, clusters, router, jeng = setup
+    args = (pts, clusters, np.asarray(router.points), router.labels_np)
+    with pytest.raises(TypeError, match="device"):
+        ServingEngine(*args)
+    with pytest.raises(TypeError):          # keyword only
+        ServingEngine(*args, "l2", 128, "exact", "exact", "exact", 0, "cpu")
+    arrays = {name: np.asarray(getattr(jeng, name)) for name in ARRAYS}
+    config = {name: getattr(jeng, name) for name in CONFIG}
+    with pytest.raises(TypeError, match="device"):
+        ServingEngine.from_state(arrays, config)
+    assert ServingEngine(*args, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.gpu
