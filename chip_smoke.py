@@ -11,10 +11,9 @@ batch by kernel (``torch.profiler``) and prints no result lines. The first
 builds the bin-top-2 kernel from ``gpann_tpu_torch/csrc/``, holds it
 against its plain PyTorch version (moderate shapes, shapes its tiling can
 get wrong, ties, one tile against fp64 beside a CPU rehearsal of its
-split-TF32 arithmetic; two launches must be bit-equal), then drives three
-paths at the bench
-configuration (8M x 96 points regenerated from seed 555, 4096 queries, k=10,
-32 shards, eps 0.05):
+split-TF32 arithmetic; two launches must be bit-equal), then drives six
+paths at the bench configuration (8M x 96 points regenerated from seed 555,
+4096 queries, k=10, 32 shards, eps 0.05):
 
 1. Serve: the resident serving path on the artifacts the JAX package built
    (``exp_artifacts/bench_8m_gp_cache.npz``: GP partition, a 10,024-point
@@ -36,6 +35,22 @@ configuration (8M x 96 points regenerated from seed 555, 4096 queries, k=10,
    ``cli.small_scale_queries`` on the shipped partition. The inputs are
    written as ``.fbin`` into a temporary directory that is removed at the
    end.
+4. Bench: ``cli.bench --config hard`` on the non-separable ``hard`` mixture
+   (8M x 96 generated by ``eval/synth.py``; artifacts
+   ``exp_artifacts/hardserve_8m_cache.npz``: a 31,643-point router, top-60
+   voting), then ``cli.bench --config blobs`` on the data of path 1. Each
+   prints the bench's JSON line; the hard curve is held against the shipped
+   one.
+5. Streamed: the hard base re-laid shard-major on disk
+   (``relayout_to_store``) and served from the host by
+   ``StreamedShardEngine``, one launch of kernel B2 per probed shard; its
+   curve is held against the resident engine's of path 4, a sliced pass
+   and a pruned pass (sub-cluster-major store) against the whole one.
+6. ``cli.scale_bench`` as a user runs it (``hard2`` bytes from a virtual
+   base, fused assign + relayout, 64 shards), twice (the second call reuses
+   every cache), then ``cli.graph_quality_benchmark``,
+   ``cli.analyze_approximation_losses`` and ``cli.extract_recall`` once
+   each.
 
 Kernel times are CUDA-event times; build stages are wall seconds with a
 CUDA synchronisation at each stage end. Any failed check raises, so the exit
@@ -44,14 +59,18 @@ code is non-zero; there is no CPU fallback.
 The last line is ``{"ok": true, "device": {...}}``; two lines before it one
 JSON object lists each kernel entry point with its launches, its error
 against the plain version, its times, its bound (``scan_bounds``) and the
-TFLOP/s it reached.
+TFLOP/s it reached: first at the shapes of path 1 with the launches of all
+six paths, then at the shapes paths 4 and 5 give it with those paths'
+launches.
 """
 
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,6 +122,29 @@ QA_ORACLE_SLACK = 0.002       # CSV recall <= a route's oracle curve + this
 QA_ORACLE_PROBES = (1, 2, 4, 32)
 QA_SMALL_BRUTE_MIN = 0.999    # small-scale BruteForce recall at 32 probes
 QA_FREE_BYTES = 12 << 30      # scratch space the phase needs
+# bench, hard mixture (exp_scripts/hard_serve_bench.py)
+HARD_ARTIFACT = os.path.join(REPO, "exp_artifacts", "hardserve_8m_cache.npz")
+HARD_VOTING_T = 60
+HARD_NPROBES_MAX = 3          # the shipped choice
+HARD_LAST_PREFIX_MIN = 0.999
+BLOBS_SERVE_RECALL = 0.99873  # the shipped curve's first prefix
+# streamed engine on the hard base
+STREAM_NPROBES = 3
+STREAM_SLICE_ROWS = 100_000   # below the largest shard; no multiple of 128
+STREAM_SAME_SHARE = 0.999     # entries of two passes equal within tolerance
+STREAM_SUB_SIZE = 8192        # rows per sub-cluster of the regrouped store
+STREAM_SUB_NPROBE = 4
+STREAM_SUB_NQ = 256           # a small batch, where pruning cuts bytes
+STREAM_SUB_LOSS = 0.02
+# cli.scale_bench as a user runs it; 16M rows fit the script's time
+SCALE_N = 16_000_000
+SCALE_SHARDS = 64
+SCALE_NQ = 1024
+SCALE_SUB_NPROBE = 4
+SCALE_BALANCE_MAX = 1.05
+SCALE_LAST_PREFIX_MIN = 0.999  # all 64 probes, no pruning
+# one configuration of the graph-quality grid (the full grid is 125)
+GQ_GRID = dict(REPS_GRID=(3,), FANOUT_GRID=(3,), CLUSTER_SIZE_GRID=(1000,))
 SOURCE = "gpann_tpu_torch/csrc/bintop2.cu"
 REPLACES = {
     "binmin_scan": "gpann_tpu/search/pallas_scan.py:39",      # _bintop2_kernel
@@ -136,17 +178,26 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def term_atol(queries, base) -> float:
+    """``ATOL`` scaled to the data: 1e-6 (~8 ulp) of the largest |q|^2 +
+    |x|^2, the terms whose rounding both versions carry. The blobs data,
+    with terms up to ~1e3, gives the constant; the hard mixture's heavy
+    tails and background points give more."""
+    return max(ATOL, 1e-6 * float((queries * queries).sum(1).max()
+                                  + (base * base).sum(1).max()))
+
+
 def compare_bins(got, want, queries, base, row_base, metric: str,
-                 id_rows=None) -> float:
+                 id_rows=None, atol: float = ATOL) -> float:
     """Check kernel summaries ``got`` against the plain version's ``want``:
-    the same +inf pattern, finite minima within tolerance, and every finite
-    entry's id (in the first ``id_rows`` rows; all by default) pointing at a
-    row whose plain distance is the reported minimum. Returns the largest
-    absolute error of the minima."""
+    the same +inf pattern, finite minima within tolerance (``RTOL``,
+    ``atol``), and every finite entry's id (in the first ``id_rows`` rows;
+    all by default) pointing at a row whose plain distance is the reported
+    minimum. Returns the largest absolute error of the minima."""
     (gm, gi), (wm, _) = got, want
     fin = torch.isfinite(wm)
     assert torch.equal(fin, torch.isfinite(gm)), "+inf pattern differs"
-    torch.testing.assert_close(gm[fin], wm[fin], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(gm[fin], wm[fin], rtol=RTOL, atol=atol)
     err = float((gm[fin] - wm[fin]).abs().max()) if fin.any() else 0.0
     # ids: recompute each finite entry's distance from its row, in chunks
     step = max(1, (1 << 27) // (gm.shape[1] * base.shape[1]))
@@ -161,7 +212,7 @@ def compare_bins(got, want, queries, base, row_base, metric: str,
             dist = 1.0 - dots
         else:
             dist = ((q * q).sum(1)[:, None] + (cand * cand).sum(2) - 2.0 * dots)
-        torch.testing.assert_close(dist[f], gm[sl][f], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(dist[f], gm[sl][f], rtol=RTOL, atol=atol)
     return err
 
 
@@ -317,32 +368,6 @@ def time_template_instances(dev, tag: str) -> None:
             f"{2.0 * NQ * rows * d / ms * 1e-9:.1f} TFLOP/s {tag}")
 
 
-def profile_serve(engine, q_dev, tag: str, batches: int = 5) -> None:
-    """Device time of a serve batch by kernel, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def batch():
-        return engine.serve_device(q_dev, K, NPROBES, voting_t=VOTING_T,
-                                   query_block=QUERY_BLOCK)
-
-    ms = cuda_ms(batch, reps=10, warmup=2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(batches):
-            batch()
-        torch.cuda.synchronize()
-    # device-side entries only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / batches / 1e3, e.count // batches)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    log(f"serve {ms:.3f} ms/batch of {NQ} (CUDA events, unprofiled); device "
-        f"busy {busy:.3f} ms a profiled batch, {sum(r[2] for r in rows)} "
-        f"kernels and copies a batch {tag}")
-    for key, per_batch, count in rows[:14]:
-        log(f"  {per_batch:8.3f} ms  x{count:<3d} {key[:100]}")
-
-
 def check_kernels(dev) -> None:
     """Kernel vs plain at moderate shapes, for both entry points and metrics."""
     from gpann_tpu_torch.search import bin_scan as bs
@@ -379,6 +404,104 @@ def check_kernels(dev) -> None:
                            row_off.repeat_interleave(qb), metric)
         log(f"kernel vs plain bintop2_blocks {metric} [4 blocks x {qb} q, "
             f"cap {cap}, sizes {sizes.tolist()}]: max_abs_err {err:.3e} ok")
+
+
+def measure_kernel(name: str, shape: str, kernel, plain, product,
+                   bounds: dict, check, reps: int, tag: str) -> dict:
+    """Hold ``kernel()`` against ``plain()`` on the same inputs (two launches
+    must be bit-equal; ``check(got, want)`` returns the largest error), time
+    both and the bare product, and return the entry's numbers for the
+    ``kernels`` line."""
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), (
+        name, "two launches on the same inputs differ")
+    del again
+    err = check(got, plain())
+    del got
+    ms = cuda_ms(kernel, reps=reps)
+    plain_ms = cuda_ms(plain, reps=2)
+    product_ms = cuda_ms(product, reps=2)
+    tflops = bounds["ops"] / ms * 1e-9
+    log(f"{name} [{shape}] kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s of "
+        f"{bounds['ops']:.4e} operations, {bounds['bytes']:.4e} bytes), "
+        f"bound {bounds['bound_ms']:.3f} ms by {bounds['bound_by']} "
+        f"(max of ops / {PEAK_SPLIT:.3e} and bytes / {PEAK_BYTES:.3e}), "
+        f"fp32-FMA bound {bounds['fp32_fma_bound_ms']:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, max_abs_err {err:.3e}, two launches bit-equal "
+        f"{tag}")
+    log(f"{name}: the product alone, chunked fp32 torch.mm (TF32 off, no "
+        f"reduction; not used by the port) {product_ms:.3f} ms {tag}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bounds["bound_ms"], bound_by=bounds["bound_by"],
+                fp32_fma_bound_ms=bounds["fp32_fma_bound_ms"],
+                tflops=tflops, library_ms=None)
+
+
+def measure_base_scan(name: str, what: str, qs, base, tag: str,
+                      id_rows=None, reps: int = 10, atol: float = ATOL) -> dict:
+    """Kernel B2 (``binmin_scan``) of ``qs`` over all rows of ``base``
+    against its plain version; the entry's numbers (:func:`measure_kernel`)."""
+    from gpann_tpu_torch.search import bin_scan as bs
+
+    dev, (m, d), n = qs.device, qs.shape, base.shape[0]
+    zeros = torch.zeros(m, dtype=torch.int64, device=dev)
+    rows = 1 << 16
+    mm_out = torch.empty((m, rows), device=dev)
+
+    def product():
+        for r0 in range(0, n, rows):
+            blk = base[r0 : r0 + rows]
+            torch.mm(qs, blk.T, out=mm_out[:, : blk.shape[0]])
+
+    return measure_kernel(
+        name, f"{m} x {n} x {d}{what}",
+        lambda: bs.binmin_scan(qs, base, n),
+        lambda: bs.binmin_scan_plain(qs, base, n), product,
+        scan_bounds(d, m, -(-n // 128) * 128,
+                    torch.zeros(1, dtype=torch.int64, device=dev),
+                    torch.full((1,), n, device=dev),
+                    torch.full((1,), m, device=dev)),
+        lambda got, want: compare_bins(got, want, qs, base, zeros, "l2",
+                                       id_rows=id_rows, atol=atol),
+        reps=reps, tag=tag)
+
+
+def measure_serve_scan(name: str, engine, q_dev, nprobes: int, voting_t: int,
+                       tag: str, atol: float = ATOL) -> dict:
+    """Kernel B1 (``bintop2_blocks``) at the shape one served batch gives it
+    (route and group of ``q_dev`` at ``nprobes``) against its plain
+    version; the entry's numbers (:func:`measure_kernel`)."""
+    from gpann_tpu_torch.search import bin_scan as bs
+
+    qrows, row_off, sizes, live_q = engine.scan_inputs(
+        q_dev, nprobes, voting_t=voting_t, query_block=QUERY_BLOCK)
+    cap, base = engine.capacity, engine.shard_points
+    scan = (qrows, base, row_off, sizes, QUERY_BLOCK, cap)
+    windows = [(b, off, size) for b, (off, size)
+               in enumerate(zip(row_off.tolist(), sizes.tolist())) if size > 0]
+    mm_out = torch.empty((QUERY_BLOCK, cap), device=q_dev.device)
+
+    def product():
+        for b, off, size in windows:
+            torch.mm(qrows[b * QUERY_BLOCK : (b + 1) * QUERY_BLOCK],
+                     base[off : off + size].T, out=mm_out[:, :size])
+
+    return measure_kernel(
+        name,
+        f"{row_off.shape[0]} blocks x {QUERY_BLOCK} q, cap {cap}, "
+        f"{len(windows)} live, {int(sizes.sum())} live rows, "
+        f"{int(live_q[sizes > 0].sum())} of {len(windows) * QUERY_BLOCK} "
+        f"query rows real (the rest pad each shard's last block), nprobes "
+        f"{nprobes}",
+        lambda: bs.bintop2_blocks(*scan),
+        lambda: bs.bintop2_blocks_plain(*scan), product,
+        scan_bounds(base.shape[1], QUERY_BLOCK, cap, row_off, sizes, live_q),
+        lambda got, want: compare_bins(
+            got, want, qrows, base, row_off.repeat_interleave(QUERY_BLOCK),
+            "l2", atol=atol),
+        reps=10, tag=tag)
 
 
 def bench_data():
@@ -570,13 +693,12 @@ def _assert_monotone(values, what: str) -> None:
 
 
 def query_attribution(dev, pts: np.ndarray, q: np.ndarray, shipped: dict,
-                      tag: str) -> dict:
+                      tag: str, scratch: str):
     """The query-attribution pipeline through the port's CLIs on ``dev``
-    (module docstring, path 3). ``shipped`` holds the shipped ``assign``
-    and ``gt_dists``. Returns the kernel launches of this path."""
-    import shutil
-    import tempfile
-
+    (module docstring, path 3), its files under ``scratch``. ``shipped``
+    holds the shipped ``assign`` and ``gt_dists``. Returns the kernel
+    launches of this path and the files a later path reads again (ground
+    truth, cover, routes)."""
     from gpann_tpu_torch import kernels
     from gpann_tpu_torch.cli import oracle_recall, small_scale_queries
     from gpann_tpu_torch.cli import partition as partition_cli
@@ -603,162 +725,582 @@ def query_attribution(dev, pts: np.ndarray, q: np.ndarray, shipped: dict,
         secs[name] = time.perf_counter() - t0
         log(f"query attribution: {name} {secs[name]:.3f} s {tag}")
 
-    scratch = tempfile.mkdtemp(prefix="gpann_qa_")
     free = shutil.disk_usage(scratch).free
     log(f"query attribution: scratch {scratch}, {free / 2**30:.1f} GiB free")
-    try:
-        assert free >= QA_FREE_BYTES, f"needs {QA_FREE_BYTES >> 30} GiB free"
-        path = lambda name: os.path.join(scratch, name)  # noqa: E731
-        base_f, query_f, gt_f = path("base.fbin"), path("queries.fbin"), path("gt.bin")
+    assert free >= QA_FREE_BYTES, f"needs {QA_FREE_BYTES >> 30} GiB free"
+    path = lambda name: os.path.join(scratch, name)  # noqa: E731
+    base_f, query_f, gt_f = path("base.fbin"), path("queries.fbin"), path("gt.bin")
 
-        # ---- 1. inputs ----
+    # ---- 1. inputs ----
+    t0 = time.perf_counter()
+    write_points(base_f, pts)
+    write_points(query_f, q)
+    assign = shipped["assign"]
+    gp_f = path(f"bench.k={SHARDS}.GP")
+    write_clusters(gp_f, partition_to_clusters(assign, SHARDS))
+    stage("write inputs", t0)
+
+    # ---- 2. overlapping cover of the shipped GP partition ----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(QA_REP_SEED)
+    sub = np.sort(rng.choice(n, size=min(QA_REP_SUBSAMPLE, n // 2),
+                             replace=False))
+    reps, rep_lbl = gp_aggregates(pts[sub], assign[sub], SHARDS,
+                                  QA_REPS_PER_SHARD * SHARDS, seed=SEED,
+                                  device=dev)
+    cap2 = int((1.0 + EPS) * (1.0 + QA_OVERLAP) * n / SHARDS)
+    ep, ec = centroid_overlap_streamed(
+        pts, assign, reps, rep_lbl, SHARDS, cap2, int(QA_OVERLAP * n),
+        device=dev)
+    cover = apply_extra_assignments(partition_to_clusters(assign, SHARDS),
+                                    ep, ec)
+    cover_f = path(f"bench.k={SHARDS}.OGP.o={QA_OVERLAP}")
+    write_clusters(cover_f, cover)
+    stage("overlap cover", t0)
+    sizes = np.asarray([len(c) for c in cover])
+    log(f"overlap cover: {len(reps)} representatives, {sizes.sum()} "
+        f"assignments of {n} points, largest cluster {sizes.max()} "
+        f"(cap {cap2}), smallest {sizes.min()}")
+    assert sizes.max() <= cap2 and n <= sizes.sum() <= (1 + QA_OVERLAP) * n
+    del cover, ep, ec
+
+    # ---- 3. the O* partitioners on a prefix, through the CLI ----
+    prefix = min(QA_PREFIX, n)
+    bound = int((1.0 + EPS) * prefix / SHARDS)
+    for method in QA_METHODS:
         t0 = time.perf_counter()
-        write_points(base_f, pts)
-        write_points(query_f, q)
-        assign = shipped["assign"]
-        gp_f = path(f"bench.k={SHARDS}.GP")
-        write_clusters(gp_f, partition_to_clusters(assign, SHARDS))
-        stage("write inputs", t0)
+        assert partition_cli.main(
+            [base_f, path("prefix"), str(SHARDS), method, str(QA_OVERLAP),
+             "l2", str(prefix)] + dev_arg) == 0
+        stage(f"partition {method}", t0)
+        got = read_clusters(path(f"prefix.k={SHARDS}.{method}.o={QA_OVERLAP}"))
+        sizes = np.asarray([len(c) for c in got])
+        covered = len(np.unique(np.concatenate(got)))
+        log(f"{method} on {prefix} rows: {len(got)} clusters, largest "
+            f"{sizes.max()} (bound {bound}), {sizes.sum()} assignments, "
+            f"{covered} points covered")
+        assert sizes.max() <= bound and covered == prefix
+        assert sizes.sum() <= prefix + int(QA_OVERLAP * prefix)
 
-        # ---- 2. overlapping cover of the shipped GP partition ----
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(QA_REP_SEED)
-        sub = np.sort(rng.choice(n, size=min(QA_REP_SUBSAMPLE, n // 2),
-                                 replace=False))
-        reps, rep_lbl = gp_aggregates(pts[sub], assign[sub], SHARDS,
-                                      QA_REPS_PER_SHARD * SHARDS, seed=SEED,
-                                      device=dev)
-        cap2 = int((1.0 + EPS) * (1.0 + QA_OVERLAP) * n / SHARDS)
-        ep, ec = centroid_overlap_streamed(
-            pts, assign, reps, rep_lbl, SHARDS, cap2, int(QA_OVERLAP * n),
-            device=dev)
-        cover = apply_extra_assignments(partition_to_clusters(assign, SHARDS),
-                                        ep, ec)
-        cover_f = path(f"bench.k={SHARDS}.OGP.o={QA_OVERLAP}")
-        write_clusters(cover_f, cover)
-        stage("overlap cover", t0)
-        sizes = np.asarray([len(c) for c in cover])
-        log(f"overlap cover: {len(reps)} representatives, {sizes.sum()} "
-            f"assignments of {n} points, largest cluster {sizes.max()} "
-            f"(cap {cap2}), smallest {sizes.min()}")
-        assert sizes.max() <= cap2 and n <= sizes.sum() <= (1 + QA_OVERLAP) * n
-        del cover, ep, ec
+    # ---- 4. query attribution (ground truth through kernel B2) ----
+    out = path("qa")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    assert qa_cli.main([base_f, query_f, gt_f, str(K), cover_f,
+                        str(SHARDS), out, "OGP", "l2", QA_BUDGETS]
+                       + dev_arg) == 0
+    stage("query attribution CLI", t0)
+    launches = dict(kernels.LAUNCHES)
+    log(f"launches on the query-attribution path: {launches}")
+    assert launches["binmin_scan"] > 0, launches
+    # kernel B2 against its plain version at the shape the GT scan gave it
+    q_dev, base = (torch.from_numpy(x).to(dev) for x in (q, pts))
+    zeros = torch.zeros(len(q), dtype=torch.int64, device=dev)
+    err = compare_bins(bs.binmin_scan(q_dev, base, n),
+                       bs.binmin_scan_plain(q_dev, base, n), q_dev, base,
+                       zeros, "l2", id_rows=256)
+    log(f"kernel vs plain binmin_scan l2 [{len(q)} x {n} x {pts.shape[1]}] "
+        f"(the QA ground truth's shape): max_abs_err {err:.3e} (rtol "
+        f"{RTOL}, atol {ATOL}) ok")
+    del q_dev, base, zeros
+    torch.cuda.empty_cache()
+    gt_ids, _ = read_ground_truth(gt_f)
+    kth_shipped = kth_neighbor_distance(shipped["gt_dists"], K)[:QA_NQ]
+    gt_recall = recall_from_ids(pts, q, gt_ids[:, :K], kth_shipped, K)
+    log(f"fresh GT recall@10 against the shipped GT on {QA_NQ} queries "
+        f"{gt_recall:.6f} (need >= {GT_RECALL_MIN})")
+    assert gt_recall >= GT_RECALL_MIN
+    for ext in ("routes", "searches", "csv", "pareto"):
+        assert os.path.getsize(f"{out}.{ext}") > 0, ext
+    rec, rows = _qa_csv_recalls(out + ".csv")
+    pareto = sum(1 for _ in open(out + ".pareto")) - 1
+    routes = sorted({key for key, _, _ in rec})
+    efs = sorted({ef for _, ef, _ in rec})
+    probes = sorted({p for _, _, p in rec})
+    for key in routes:
+        for ef in efs:
+            _assert_monotone([rec[(key, ef, p)] for p in probes],
+                             (key, "ef", ef))
+        for p in probes:
+            _assert_monotone([rec[(key, ef, p)] for ef in efs],
+                             (key, "nprobes", p))
+    best = max(rec.values())
+    log(f"query attribution CSV: {rows} rows, {pareto} Pareto rows, "
+        f"{len(routes)} routes x ef_search {efs} x {len(probes)} nprobes; "
+        f"recall monotone in nprobes and in ef_search; highest recall "
+        f"{best:.5f}")
 
-        # ---- 3. the O* partitioners on a prefix, through the CLI ----
-        prefix = min(QA_PREFIX, n)
-        bound = int((1.0 + EPS) * prefix / SHARDS)
-        for method in QA_METHODS:
-            t0 = time.perf_counter()
-            assert partition_cli.main(
-                [base_f, path("prefix"), str(SHARDS), method, str(QA_OVERLAP),
-                 "l2", str(prefix)] + dev_arg) == 0
-            stage(f"partition {method}", t0)
-            got = read_clusters(path(f"prefix.k={SHARDS}.{method}.o={QA_OVERLAP}"))
-            sizes = np.asarray([len(c) for c in got])
-            covered = len(np.unique(np.concatenate(got)))
-            log(f"{method} on {prefix} rows: {len(got)} clusters, largest "
-                f"{sizes.max()} (bound {bound}), {sizes.sum()} assignments, "
-                f"{covered} points covered")
-            assert sizes.max() <= bound and covered == prefix
-            assert sizes.sum() <= prefix + int(QA_OVERLAP * prefix)
-
-        # ---- 4. query attribution (ground truth through kernel B2) ----
-        out = path("qa")
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        assert qa_cli.main([base_f, query_f, gt_f, str(K), cover_f,
-                            str(SHARDS), out, "OGP", "l2", QA_BUDGETS]
-                           + dev_arg) == 0
-        stage("query attribution CLI", t0)
-        launches = dict(kernels.LAUNCHES)
-        log(f"launches on the query-attribution path: {launches}")
-        assert launches["binmin_scan"] > 0, launches
-        # kernel B2 against its plain version at the shape the GT scan gave it
-        q_dev, base = (torch.from_numpy(x).to(dev) for x in (q, pts))
-        zeros = torch.zeros(len(q), dtype=torch.int64, device=dev)
-        err = compare_bins(bs.binmin_scan(q_dev, base, n),
-                           bs.binmin_scan_plain(q_dev, base, n), q_dev, base,
-                           zeros, "l2", id_rows=256)
-        log(f"kernel vs plain binmin_scan l2 [{len(q)} x {n} x {pts.shape[1]}] "
-            f"(the QA ground truth's shape): max_abs_err {err:.3e} (rtol "
-            f"{RTOL}, atol {ATOL}) ok")
-        del q_dev, base, zeros
-        torch.cuda.empty_cache()
-        gt_ids, _ = read_ground_truth(gt_f)
-        kth_shipped = kth_neighbor_distance(shipped["gt_dists"], K)[:QA_NQ]
-        gt_recall = recall_from_ids(pts, q, gt_ids[:, :K], kth_shipped, K)
-        log(f"fresh GT recall@10 against the shipped GT on {QA_NQ} queries "
-            f"{gt_recall:.6f} (need >= {GT_RECALL_MIN})")
-        assert gt_recall >= GT_RECALL_MIN
-        for ext in ("routes", "searches", "csv", "pareto"):
-            assert os.path.getsize(f"{out}.{ext}") > 0, ext
-        rec, rows = _qa_csv_recalls(out + ".csv")
-        pareto = sum(1 for _ in open(out + ".pareto")) - 1
-        routes = sorted({key for key, _, _ in rec})
-        efs = sorted({ef for _, ef, _ in rec})
-        probes = sorted({p for _, _, p in rec})
-        for key in routes:
+    # ---- 5. oracle recall: the CLI, and every route's curve ----
+    t0 = time.perf_counter()
+    assert oracle_recall.main([gt_f, out + ".routes", str(K), cover_f,
+                               "OGP", path("oracle.csv")]) == 0
+    csr = clusters_to_cover_csr(read_clusters(cover_f), n)
+    gaps = {p: [] for p in QA_ORACLE_PROBES}
+    for r in deserialize_routes(out + ".routes"):
+        key = (r.routing_algorithm, r.index_trainer,
+               r.hnsw_num_voting_neighbors, r.index_size_bytes)
+        curve = oracle_recall.recall_for_increasing_probes(
+            list(r.buckets_to_probe), csr, gt_ids, K, SHARDS)
+        for p in QA_ORACLE_PROBES:
             for ef in efs:
-                _assert_monotone([rec[(key, ef, p)] for p in probes],
-                                 (key, "ef", ef))
-            for p in probes:
-                _assert_monotone([rec[(key, ef, p)] for ef in efs],
-                                 (key, "nprobes", p))
-        best = max(rec.values())
-        log(f"query attribution CSV: {rows} rows, {pareto} Pareto rows, "
-            f"{len(routes)} routes x ef_search {efs} x {len(probes)} nprobes; "
-            f"recall monotone in nprobes and in ef_search; highest recall "
-            f"{best:.5f}")
+                assert rec[(key, ef, p)] <= curve[p - 1] + QA_ORACLE_SLACK, (
+                    key, ef, p, rec[(key, ef, p)], curve[p - 1])
+            gaps[p].append(curve[p - 1] - rec[(key, efs[-1], p)])
+    stage("oracle recall", t0)
+    log(f"CSV recall <= oracle + {QA_ORACLE_SLACK} for every route, "
+        f"nprobes {QA_ORACLE_PROBES}, ef_search; oracle - CSV recall at "
+        f"ef_search {efs[-1]}: " + ", ".join(
+            f"nprobes {p} mean {np.mean(g):.5f} max {np.max(g):.5f}"
+            for p, g in gaps.items()))
 
-        # ---- 5. oracle recall: the CLI, and every route's curve ----
-        t0 = time.perf_counter()
-        assert oracle_recall.main([gt_f, out + ".routes", str(K), cover_f,
-                                   "OGP", path("oracle.csv")]) == 0
-        csr = clusters_to_cover_csr(read_clusters(cover_f), n)
-        gaps = {p: [] for p in QA_ORACLE_PROBES}
-        for r in deserialize_routes(out + ".routes"):
-            key = (r.routing_algorithm, r.index_trainer,
-                   r.hnsw_num_voting_neighbors, r.index_size_bytes)
-            curve = oracle_recall.recall_for_increasing_probes(
-                list(r.buckets_to_probe), csr, gt_ids, K, SHARDS)
-            for p in QA_ORACLE_PROBES:
-                for ef in efs:
-                    assert rec[(key, ef, p)] <= curve[p - 1] + QA_ORACLE_SLACK, (
-                        key, ef, p, rec[(key, ef, p)], curve[p - 1])
-                gaps[p].append(curve[p - 1] - rec[(key, efs[-1], p)])
-        stage("oracle recall", t0)
-        log(f"CSV recall <= oracle + {QA_ORACLE_SLACK} for every route, "
-            f"nprobes {QA_ORACLE_PROBES}, ef_search; oracle - CSV recall at "
-            f"ef_search {efs[-1]}: " + ", ".join(
-                f"nprobes {p} mean {np.mean(g):.5f} max {np.max(g):.5f}"
-                for p, g in gaps.items()))
-
-        # ---- 6. small-scale queries on the shipped GP partition ----
-        t0 = time.perf_counter()
-        ss_csv = path("small_scale.csv")
-        assert small_scale_queries.main([base_f, query_f, gt_f, str(K), gp_f,
-                                         ss_csv, "GP"] + dev_arg) == 0
-        stage("small scale CLI", t0)
-        curves = {}
-        with open(ss_csv) as f:
-            f.readline()
-            for line in f:
-                c = line.strip().split(",")
-                curves.setdefault((c[1], c[2]), []).append(
-                    (int(c[3]), float(c[7])))
-        for (router, engine), curve in curves.items():
-            curve.sort()
-            _assert_monotone([r for _, r in curve], (router, engine))
-            log(f"small scale {router} {engine}: recall@10 " + " ".join(
-                f"{p}:{r:.5f}" for p, r in curve if p in (1, 2, 4, 8, 32)))
-            if engine == "BruteForce":
-                assert curve[-1] == (SHARDS, curve[-1][1])
-                assert curve[-1][1] >= QA_SMALL_BRUTE_MIN, curve[-1]
-    finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+    # ---- 6. small-scale queries on the shipped GP partition ----
+    t0 = time.perf_counter()
+    ss_csv = path("small_scale.csv")
+    assert small_scale_queries.main([base_f, query_f, gt_f, str(K), gp_f,
+                                     ss_csv, "GP"] + dev_arg) == 0
+    stage("small scale CLI", t0)
+    curves = {}
+    with open(ss_csv) as f:
+        f.readline()
+        for line in f:
+            c = line.strip().split(",")
+            curves.setdefault((c[1], c[2]), []).append(
+                (int(c[3]), float(c[7])))
+    for (router, engine), curve in curves.items():
+        curve.sort()
+        _assert_monotone([r for _, r in curve], (router, engine))
+        log(f"small scale {router} {engine}: recall@10 " + " ".join(
+            f"{p}:{r:.5f}" for p, r in curve if p in (1, 2, 4, 8, 32)))
+        if engine == "BruteForce":
+            assert curve[-1] == (SHARDS, curve[-1][1])
+            assert curve[-1][1] >= QA_SMALL_BRUTE_MIN, curve[-1]
     log("query attribution stage seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in secs.items())
         + f"; total {sum(secs.values()):.3f} {tag}")
+    return launches, dict(gt=gt_f, cover=cover_f, routes=out + ".routes")
+
+
+def _kernel_entry(name: str, launches: int, stats: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name.split(" ")[0]], "launches": launches,
+            **stats}
+
+
+def bench_phase(dev, pts: np.ndarray, q: np.ndarray, shipped_hard: dict,
+                cache_dir: str, tag: str):
+    """``cli.bench`` on the hard mixture and on blobs (module docstring,
+    path 4); ``pts`` and ``q`` are path 1's blobs data. Returns the kernel
+    launches of this path, the hard run's state (engine, points, queries,
+    kth) and JSON line, and the ``kernels`` entry of B1 at the hard serve
+    shape."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.cli import bench as bench_cli
+    from gpann_tpu_torch.eval.synth import dataset_cached
+    from gpann_tpu_torch.search import bin_scan as bs
+
+    size = ["--n", str(N), "--d", str(D), "--nq", str(NQ), "--shards",
+            str(SHARDS), "--cache-dir", cache_dir, "--device", str(dev)]
+    os.makedirs(cache_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    dataset_cached("hard", N, D, SEED, cache_dir=cache_dir)
+    log(f"bench: hard base {N} x {D} generated in "
+        f"{time.perf_counter() - t0:.3f} s {tag}")
+
+    # ---- hard mixture ----
+    kernels.reset_launches()
+    hard = {}
+    t0 = time.perf_counter()
+    out = bench_cli.run(bench_cli.parse_args(["--config", "hard"] + size), hard)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"bench hard: {time.perf_counter() - t0:.3f} s; launches {launches}")
+    log(json.dumps(out))
+    assert all(v > 0 for v in launches.values()), launches
+    curve, ref = np.asarray(out["curve"]), shipped_hard["curve"]
+    log("bench hard shipped curve: " + " ".join(
+        f"{p + 1}:{r:.5f}" for p, r in enumerate(ref)))
+    assert out["brute_recall_at_10"] >= 0.999, out["brute_recall_at_10"]
+    _assert_monotone(list(curve), "hard curve")
+    worst = float((ref - curve).max())
+    log(f"bench hard: curve - shipped curve >= {-worst:.5f} over {len(curve)} "
+        f"prefixes (need >= -{RECALL_SLACK}); last prefix {curve[-1]:.5f} "
+        f"(need >= {HARD_LAST_PREFIX_MIN}); nprobes {out['nprobes']} (shipped "
+        f"{int(shipped_hard['nprobes'])}); serve recall@10 "
+        f"{out['recall_at_10']:.4f} (need >= 0.95)")
+    assert worst <= RECALL_SLACK and curve[-1] >= HARD_LAST_PREFIX_MIN
+    assert out["nprobes"] <= min(HARD_NPROBES_MAX, int(shipped_hard["nprobes"]))
+    assert out["recall_at_10"] >= 0.95
+    assert out["routing_points"] == len(shipped_hard["routing_points"])
+    log(f"bench hard: serve {out['per_dispatch_ms']:.3f} ms/batch per dispatch "
+        f"({out['per_dispatch_qps']:.1f} QPS), {out['window_ms_per_batch']:.3f} "
+        f"ms/batch in 32-batch windows ({out['value']:.1f} QPS), brute "
+        f"{out['brute_ms']:.3f} ms/batch ({out['brute_force_qps']:.1f} QPS), "
+        f"vs_baseline {out['vs_baseline']} {tag}")
+
+    # B1 against its plain version at the shape the hard serve gives it
+    engine = hard["engine"]
+    q_dev = torch.from_numpy(hard["queries"]).to(dev)
+    atol = term_atol(q_dev, engine.shard_points)
+    log(f"bench hard: kernel vs plain at rtol {RTOL}, atol {atol:.3e} (1e-6 of "
+        "the largest |q|^2 + |x|^2 of the hard mixture)")
+    entry = _kernel_entry(
+        "bintop2_blocks (hard serve)", launches["bintop2_blocks"],
+        measure_serve_scan("bintop2_blocks (hard serve)", engine, q_dev,
+                           out["nprobes"], HARD_VOTING_T, tag, atol=atol))
+    profile_batch(lambda: engine.serve_device(
+        q_dev, K, out["nprobes"], voting_t=HARD_VOTING_T,
+        query_block=QUERY_BLOCK), "hard serve", tag)
+    del engine
+
+    # ---- blobs: path 1's data, memory-mapped from the cache ----
+    t0 = time.perf_counter()
+    np.save(os.path.join(cache_dir, f"bench_pts_{SEED}_{N}_{D}_{NQ}.npy"), pts)
+    np.save(os.path.join(cache_dir, f"bench_q_{SEED}_{N}_{D}_{NQ}.npy"), q)
+    log(f"bench: blobs data written in {time.perf_counter() - t0:.3f} s")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    blobs = bench_cli.run(bench_cli.parse_args(["--config", "blobs"] + size))
+    torch.cuda.synchronize()
+    log(f"bench blobs: {time.perf_counter() - t0:.3f} s; launches "
+        f"{kernels.LAUNCHES}")
+    log(json.dumps(blobs))
+    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    for name in launches:
+        launches[name] += kernels.LAUNCHES[name]
+    assert abs(blobs["recall_at_10"] - BLOBS_SERVE_RECALL) <= RECALL_SLACK, blobs
+    assert blobs["vs_baseline"] > 0 and blobs["nprobes"] == NPROBES
+    log(f"bench blobs: serve recall@10 {blobs['recall_at_10']:.4f} (shipped "
+        f"{BLOBS_SERVE_RECALL}; need within {RECALL_SLACK}), serve "
+        f"{blobs['per_dispatch_ms']:.3f} ms/batch per dispatch, "
+        f"{blobs['window_ms_per_batch']:.3f} ms/batch in windows "
+        f"({blobs['value']:.1f} QPS), brute {blobs['brute_ms']:.3f} ms/batch, "
+        f"vs_baseline {blobs['vs_baseline']} {tag}")
+    torch.cuda.empty_cache()
+    return launches, hard, out, entry
+
+
+def profile_batch(batch, what: str, tag: str, batches: int = 5,
+                  rows: int = 8) -> None:
+    """Device time of one served batch by its ``rows`` largest kernels
+    (``torch.profiler``), beside its CUDA-event time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = cuda_ms(batch, reps=10, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            batch()
+        torch.cuda.synchronize()
+    # device-side entries only: an operator's row repeats its kernels' time
+    kernels_ = [(e.key, e.self_device_time_total / batches / 1e3,
+                 e.count // batches)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels_.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels_)
+    log(f"{what} {ms:.3f} ms/batch of {NQ} (CUDA events, unprofiled); device "
+        f"busy {busy:.3f} ms a profiled batch, {sum(r[2] for r in kernels_)} "
+        f"kernels and copies a batch {tag}")
+    for key, per_batch, count in kernels_[:rows]:
+        log(f"  {per_batch:8.3f} ms  x{count:<3d} {key[:100]}")
+
+
+def streamed_phase(dev, hard: dict, hard_out: dict, shipped_hard: dict,
+                   store_dir: str, tag: str):
+    """The hard base served from the host, shard by shard (module docstring,
+    path 5). ``hard`` is the state of path 4's hard run, ``hard_out`` its
+    JSON line. Returns the kernel launches of this path and the ``kernels``
+    entry of B2 at a shard's shape."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.eval.recall import recall_from_ids
+    from gpann_tpu_torch.search import bin_scan as bs
+    from gpann_tpu_torch.search.relayout import relayout_to_store
+    from gpann_tpu_torch.search.streamed import StreamedShardEngine
+
+    pts, q, kth = hard["points"], hard["queries"], hard["kth"]
+    assign = shipped_hard["assign"]
+    router = (shipped_hard["routing_points"], shipped_hard["routing_labels"])
+    t0 = time.perf_counter()
+    store = relayout_to_store(pts, assign, SHARDS, store_dir)
+    log(f"streamed: relayout of {pts.shape} into {SHARDS} shard files "
+        f"{time.perf_counter() - t0:.3f} s; sizes {store.sizes.min()}.."
+        f"{store.sizes.max()} {tag}")
+    assert store.n == len(pts) and (
+        store.sizes == np.bincount(assign, minlength=SHARDS)).all()
+
+    def one_pass(engine, what: str, queries=q, **kw):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i, stats = engine.search(queries, K, STREAM_NPROBES,
+                                    voting_t=HARD_VOTING_T, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"streamed {what}: pass {secs:.3f} s for {len(queries)} queries, "
+            f"{stats['bytes_uploaded'] / 1e9:.3f} GB copied; route "
+            f"{stats['route_s']:.3f} s, gather {stats['gather_s']:.3f} s, scan "
+            f"{stats['scan_s']:.3f} s of which upload {stats['upload_s']:.3f} "
+            f"s; device scans {stats['device_scan_ms']:.3f} ms over "
+            f"{stats['blocks_scanned']} blocks of {stats['shards_scanned']} "
+            f"shards (CUDA events); launches {kernels.LAUNCHES} {tag}")
+        return d, i, stats, dict(kernels.LAUNCHES)
+
+    def same_share(a, b) -> float:
+        return float(np.mean(np.abs(a - b) <= ATOL + RTOL * np.abs(b)))
+
+    def ids_stand_for_distances(d, i) -> None:
+        rows = np.asarray(pts[np.maximum(i, 0).reshape(-1)]).reshape(*i.shape, -1)
+        exact = ((q[:, None, :] - rows) ** 2).sum(-1)
+        np.testing.assert_allclose(exact[i >= 0], d[i >= 0], rtol=RTOL,
+                                   atol=ATOL)
+        assert ((i >= 0) == np.isfinite(d)).all()
+
+    engine = StreamedShardEngine(None, None, *router, scan_mode="binned",
+                                 store=store, device=dev)
+    # ---- the curve of one pass against the resident engine's ----
+    kernels.reset_launches()
+    curve, stats = engine.recall_curve(q, K, kth, max_nprobes=STREAM_NPROBES,
+                                       voting_t=HARD_VOTING_T)
+    launches = dict(kernels.LAUNCHES)
+    resident = np.asarray(hard_out["curve"][:STREAM_NPROBES])
+    log("streamed curve: " + " ".join(f"{p + 1}:{r:.5f}" for p, r in
+                                      enumerate(curve))
+        + "; resident: " + " ".join(f"{p + 1}:{r:.5f}" for p, r in
+                                    enumerate(resident))
+        + f" (need within {RECALL_SLACK})")
+    assert np.abs(curve - resident).max() <= RECALL_SLACK
+    # one launch of B2 per probed shard; a shard with fewer than 4k bin
+    # candidates takes the exact scan
+    probes = engine.probe_order(q, STREAM_NPROBES, voting_t=HARD_VOTING_T)
+    probed = np.unique(probes)
+    binned = int((2 * (store.sizes[probed] // bs.BIN + 1) >= 4 * K).sum())
+    log(f"streamed: {len(probed)} shards probed, {binned} through kernel B2, "
+        f"launches {launches}")
+    assert stats["shards_scanned"] == len(probed) == stats["blocks_scanned"]
+    assert launches == {"binmin_scan": binned, "bintop2_blocks": 0}, launches
+
+    # ---- ids and distances against the resident engine's serve ----
+    d, i, stats, more = one_pass(engine, "whole shards")
+    launches["binmin_scan"] += more["binmin_scan"]
+    rd, ri = hard["engine"].serve(q, K, STREAM_NPROBES, voting_t=HARD_VOTING_T,
+                                  query_block=QUERY_BLOCK)
+    ids_stand_for_distances(d, i)
+    share = same_share(d, rd)
+    recalls = [recall_from_ids(pts, q, ids, kth, K) for ids in (i, ri)]
+    log(f"streamed vs resident at nprobes {STREAM_NPROBES}: ids stand for "
+        f"their distances (rtol {RTOL}, atol {ATOL}); {share:.6f} of the "
+        f"distances equal (need >= {STREAM_SAME_SHARE}); recall@10 "
+        f"{recalls[0]:.5f} against {recalls[1]:.5f}")
+    assert share >= STREAM_SAME_SHARE
+    assert abs(recalls[0] - recalls[1]) <= RECALL_SLACK
+    copy_share = (stats["gather_s"] + stats["upload_s"]) / (
+        stats["route_s"] + stats["gather_s"] + stats["scan_s"])
+    log(f"streamed: gather + upload are {copy_share:.3f} of the pass, the "
+        f"device scans {stats['device_scan_ms'] / 1e3 / (stats['route_s'] + stats['gather_s'] + stats['scan_s']):.3f} {tag}")
+
+    # ---- sliced: blocks below the largest shard ----
+    assert STREAM_SLICE_ROWS < store.sizes.max()
+    sliced = StreamedShardEngine(None, None, *router, scan_mode="binned",
+                                 store=store, max_scan_rows=STREAM_SLICE_ROWS,
+                                 device=dev)
+    sd, si, sstats, more = one_pass(sliced, f"slices of {STREAM_SLICE_ROWS} rows")
+    launches["binmin_scan"] += more["binmin_scan"]
+    assert sstats["blocks_scanned"] > sstats["shards_scanned"]
+    assert sstats["bytes_uploaded"] == stats["bytes_uploaded"]
+    share = same_share(sd, d)
+    log(f"streamed sliced vs whole: {share:.6f} of the distances equal (need "
+        f">= {STREAM_SAME_SHARE})")
+    assert share >= STREAM_SAME_SHARE
+    ids_stand_for_distances(sd, si)
+
+    # ---- B2 against its plain version at one shard's shape ----
+    b = int(probed[np.argmax(store.sizes[probed])])
+    shard = torch.from_numpy(np.array(store.shard_rows(b))).to(dev)
+    qs = torch.from_numpy(q[np.nonzero((probes == b).any(axis=1))[0]]).to(dev)
+    entry = _kernel_entry(
+        "binmin_scan (streamed shard)", launches["binmin_scan"],
+        measure_base_scan("binmin_scan (streamed shard)",
+                          f", shard {b} and the queries that probe it", qs,
+                          shard, tag, atol=term_atol(qs, shard)))
+    del shard, qs
+
+    # ---- pruned: a sub-cluster-major store, a small batch ----
+    qsub, ksub = q[:STREAM_SUB_NQ], kth[:STREAM_SUB_NQ]
+    t0 = time.perf_counter()
+    engine.build_subclusters_store(target_sub_size=STREAM_SUB_SIZE, seed=SEED)
+    log(f"streamed: store regrouped into "
+        f"{sum(len(c) for c in engine.sub_centroids)} sub-clusters of "
+        f"~{STREAM_SUB_SIZE} rows in {time.perf_counter() - t0:.3f} s {tag}")
+    kernels.reset_launches()
+    whole, wstats = engine.recall_curve(qsub, K, ksub, STREAM_NPROBES,
+                                        HARD_VOTING_T)
+    cut, cstats = engine.recall_curve(qsub, K, ksub, STREAM_NPROBES,
+                                      HARD_VOTING_T,
+                                      sub_nprobe=STREAM_SUB_NPROBE)
+    launches["binmin_scan"] += kernels.LAUNCHES["binmin_scan"]
+    log(f"streamed pruned, {STREAM_SUB_NQ} queries, sub_nprobe "
+        f"{STREAM_SUB_NPROBE}: {cstats['bytes_uploaded'] / 1e9:.3f} GB against "
+        f"{wstats['bytes_uploaded'] / 1e9:.3f} GB whole; recall@10 at nprobes "
+        f"{STREAM_NPROBES} {cut[-1]:.5f} against {whole[-1]:.5f} (may lose "
+        f"{STREAM_SUB_LOSS})")
+    assert cstats["bytes_uploaded"] < wstats["bytes_uploaded"]
+    assert cut[-1] >= whole[-1] - STREAM_SUB_LOSS
+    return launches, entry
+
+
+def scale_phase(dev, cache_dir: str, tag: str) -> dict:
+    """``cli.scale_bench`` as a user runs it, twice (module docstring, path
+    6). Returns the kernel launches of this path."""
+    import contextlib
+    import io
+
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.cli import scale_bench
+
+    argv = ["--kind", "hard2", "--dtype", "u8", "--base", "virtual",
+            "--layout", "shard-major", "--method", "bkm", "--shards",
+            str(SCALE_SHARDS), "--nq", str(SCALE_NQ), "--n", str(SCALE_N),
+            "--d", str(D), "--device", str(dev)]
+    kernels.reset_launches()
+    prev = os.environ.get("GPANN_CACHE_DIR")
+    os.environ["GPANN_CACHE_DIR"] = cache_dir
+    try:
+        runs = []
+        for name, sub in (("pruned", SCALE_SUB_NPROBE), ("whole", 0)):
+            out_csv = os.path.join(cache_dir, f"scale_{name}.csv")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                assert scale_bench.main(argv + ["--sub-nprobe", str(sub),
+                                                "--out", out_csv]) == 0
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+            with open(out_csv) as f:
+                header = f.readline().strip().split(",")
+                rows = [dict(zip(header, line.strip().split(","))) for line in f]
+            log(f"scale_bench --sub-nprobe {sub}: {secs:.3f} s {tag}")
+            log(json.dumps(summary))
+            log("scale_bench stage seconds: " + ", ".join(
+                f"{k} {rows[0][k]}" for k in
+                ("partition_s", "gt_s", "router_s", "curve_pass_s"))
+                + f"; {rows[0]['gb_streamed']} GB streamed")
+            curve = [float(r["recall"]) for r in rows]
+            log("scale_bench curve: " + " ".join(
+                f"{p + 1}:{r:.4f}" for p, r in enumerate(curve)
+                if p < 8 or p + 1 == len(curve)))
+            assert len(rows) == SCALE_SHARDS and summary["n"] == SCALE_N
+            assert summary["balance"] <= SCALE_BALANCE_MAX, summary
+            _assert_monotone(curve, f"scale_bench {name}")
+            runs.append((summary, curve, secs))
+    finally:
+        if prev is None:
+            del os.environ["GPANN_CACHE_DIR"]
+        else:
+            os.environ["GPANN_CACHE_DIR"] = prev
+    (_, _, cold), (whole, curve, warm) = runs
+    log(f"scale_bench: cold {cold:.3f} s, on its own caches {warm:.3f} s; last "
+        f"prefix without pruning {curve[-1]:.6f} (need >= {SCALE_LAST_PREFIX_MIN})")
+    assert curve[-1] >= SCALE_LAST_PREFIX_MIN and whole["sub_nprobe"] == 0
+    launches = dict(kernels.LAUNCHES)
+    log(f"launches on the scale_bench path: {launches}")
+    assert launches["binmin_scan"] > 0, launches
+    return launches
+
+
+def analysis_phase(dev, pts: np.ndarray, q: np.ndarray, qa_files: dict,
+                   scratch: str, tag: str) -> dict:
+    """The three analysis CLIs once each (module docstring, path 6): graph
+    quality and approximation losses on a prefix of the points, extract
+    recall (oracle mode) on path 3's routes. Returns the kernel launches."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.cli import analyze_approximation_losses as losses_cli
+    from gpann_tpu_torch.cli import extract_recall
+    from gpann_tpu_torch.cli import graph_quality_benchmark as gq_cli
+    from gpann_tpu_torch.cli import partition as partition_cli
+    from gpann_tpu_torch.core.pointset import write_points
+
+    path = lambda name: os.path.join(scratch, name)  # noqa: E731
+    dev_arg = ["--device", str(dev)]
+    prefix = min(QA_PREFIX, len(pts))
+    method = "BalancedKMeans"
+    kernels.reset_launches()
+    write_points(path("an_base1B.fbin"), pts[:prefix])
+    write_points(path("an_query.fbin"), q[:QA_NQ])
+    assert partition_cli.main([path("an_base1B.fbin"), path("an.partition"),
+                               str(SHARDS), method] + dev_arg) == 0
+    part_f = path(f"an.partition.k={SHARDS}.{method}")
+
+    # ---- graph quality: one configuration of the grid ----
+    t0 = time.perf_counter()
+    for name, grid in GQ_GRID.items():
+        setattr(gq_cli, name, grid)
+    assert gq_cli.main([path("an_base1B.fbin"), path("an_query.fbin"), str(K),
+                        str(SHARDS), path("gq.csv")] + dev_arg) == 0
+    with open(path("gq.csv")) as f:
+        assert f.readline().strip() == (
+            "reps,fanout,max_cluster_size,degree,graph_recall,"
+            "first_shard_oracle_recall")
+        rows = [line.strip().split(",") for line in f]
+    assert len(rows) == 1 and len(rows[0]) == 6, rows
+    grecall, first = float(rows[0][4]), float(rows[0][5])
+    assert 0.0 <= grecall <= 1.0 and 0.0 <= first <= 1.0
+    log(f"graph quality on {prefix} rows, (reps, fanout, cluster size, degree) "
+        f"{tuple(rows[0][:4])}: graph recall {grecall:.4f}, first-shard oracle "
+        f"recall {first:.4f}; {time.perf_counter() - t0:.3f} s {tag}")
+
+    # ---- approximation losses ----
+    t0 = time.perf_counter()
+    assert losses_cli.main([path("an_base1B.fbin"), path("an_query.fbin"),
+                            path("an_ground-truth.bin"), str(K), part_f, method,
+                            path("losses.csv")] + dev_arg) == 0
+    curves = {}
+    with open(path("losses.csv")) as f:
+        assert f.readline().strip() == "partitioning,num probes,recall,type"
+        for line in f:
+            _, probe, recall, kind = line.strip().split(",")
+            curves.setdefault(kind, []).append((int(probe), float(recall)))
+    assert set(curves) == {"brute-force-routing", "kmeans-tree-sample",
+                           "uniform-sample", "single-center"}, set(curves)
+    for kind, curve in curves.items():
+        recalls = [r for _, r in sorted(curve)]
+        assert len(recalls) == SHARDS and 0.0 <= recalls[0] <= recalls[-1] <= 1.0
+        _assert_monotone(recalls, kind)
+        log(f"approximation losses {kind}: recall@10 " + " ".join(
+            f"{p + 1}:{recalls[p]:.4f}" for p in (0, 1, 3, SHARDS - 1)
+            if p < SHARDS))
+    log(f"approximation losses: {time.perf_counter() - t0:.3f} s {tag}")
+
+    # ---- extract recall: the oracle curves of path 3's routes ----
+    t0 = time.perf_counter()
+    data, outp = path("extract_in"), path("extract_out")
+    os.makedirs(data)
+    os.makedirs(outp)
+    cover_name = os.path.basename(qa_files["cover"])   # bench.k=32.OGP.o=0.2
+    sfx = cover_name.split(".OGP", 1)[1]
+    os.symlink(qa_files["gt"], os.path.join(data, "bench_ground-truth.bin"))
+    os.symlink(qa_files["cover"],
+               os.path.join(data, f"bench.partition.k={SHARDS}.OGP{sfx}"))
+    os.symlink(qa_files["routes"], os.path.join(outp, f"{cover_name}.routes"))
+    assert extract_recall.main([data, outp, "--datasets", "bench:l2",
+                                "--methods", "OGP", "--shards", str(SHARDS),
+                                "--overlap", str(QA_OVERLAP), "--mode",
+                                "oracle"] + dev_arg) == 0
+    by_route = {}
+    with open(os.path.join(outp, f"bench.OGP.k={SHARDS}{sfx}.oracle_recall")) as f:
+        f.readline()
+        for line in f:
+            c = line.strip().split(",")
+            by_route.setdefault(tuple(c[3:]), []).append((int(c[1]), float(c[2])))
+    assert by_route
+    for key, curve in by_route.items():
+        recalls = [r for _, r in sorted(curve)]
+        assert 0.0 <= recalls[0] and recalls[-1] <= 1.0, key
+        _assert_monotone(recalls, key)
+    log(f"extract recall (oracle mode): {len(by_route)} curves, each monotone "
+        f"in probes and inside [0, 1]; {time.perf_counter() - t0:.3f} s {tag}")
+    launches = dict(kernels.LAUNCHES)
+    log(f"launches on the analysis path: {launches}")
+    assert launches["binmin_scan"] > 0, launches
     return launches
 
 
@@ -844,84 +1386,14 @@ def main(profile_only: bool = False) -> int:
     # ---- kernel vs plain at the main path's shapes, and timings ----
     log("library_ms is null for both entries: no single PyTorch call computes "
         "a per-bin top-2")
-    stats = {}
-
-    def measure(name: str, shape: str, kernel, plain, product, bounds: dict,
-                check, reps: int) -> None:
-        got = kernel()
-        again = kernel()
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), (
-            name, "two launches on the same inputs differ")
-        del again
-        err = check(got, plain())
-        del got
-        ms = cuda_ms(kernel, reps=reps)
-        plain_ms = cuda_ms(plain, reps=2)
-        product_ms = cuda_ms(product, reps=2)
-        tflops = bounds["ops"] / ms * 1e-9
-        stats[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bounds["bound_ms"], bound_by=bounds["bound_by"],
-                           fp32_fma_bound_ms=bounds["fp32_fma_bound_ms"],
-                           tflops=tflops, library_ms=None)
-        log(f"{name} [{shape}] kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s of "
-            f"{bounds['ops']:.4e} operations, {bounds['bytes']:.4e} bytes), "
-            f"bound {bounds['bound_ms']:.3f} ms by {bounds['bound_by']} "
-            f"(max of ops / {PEAK_SPLIT:.3e} and bytes / {PEAK_BYTES:.3e}), "
-            f"fp32-FMA bound {bounds['fp32_fma_bound_ms']:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, max_abs_err {err:.3e}, two launches bit-equal "
-            f"{tag}")
-        log(f"{name}: the product alone, chunked fp32 torch.mm (TF32 off, no "
-            f"reduction; not used by the port) {product_ms:.3f} ms {tag}")
-
     assert not torch.backends.cuda.matmul.allow_tf32
-    zeros = torch.zeros(NQ, dtype=torch.int64, device=dev)
-    one = torch.zeros(1, dtype=torch.int64, device=dev)
-    mm_rows = 1 << 16
-    mm_out = torch.empty((NQ, mm_rows), device=dev)
-
-    def brute_product():
-        for r0 in range(0, N, mm_rows):
-            blk = base[r0 : r0 + mm_rows]
-            torch.mm(q_dev, blk.T, out=mm_out[:, : blk.shape[0]])
-
     # ids are checked on the first 256 queries: the gather is 12 MB a row
-    measure("binmin_scan", f"{NQ} x {N} x {D}",
-            lambda: bs.binmin_scan(q_dev, base, N),
-            lambda: bs.binmin_scan_plain(q_dev, base, N), brute_product,
-            scan_bounds(D, NQ, -(-N // 128) * 128, one,
-                        torch.full((1,), N, device=dev),
-                        torch.full((1,), NQ, device=dev)),
-            lambda got, want: compare_bins(got, want, q_dev, base, zeros, "l2",
-                                           id_rows=256), reps=3)
-    del mm_out
-
-    qrows, row_off, sizes, live_q = engine.scan_inputs(
-        q_dev, NPROBES, voting_t=VOTING_T, query_block=QUERY_BLOCK)
-    cap = engine.capacity
-    scan = (qrows, engine.shard_points, row_off, sizes, QUERY_BLOCK, cap)
-    windows = [(b, off, size) for b, (off, size)
-               in enumerate(zip(row_off.tolist(), sizes.tolist())) if size > 0]
-    mm_out = torch.empty((QUERY_BLOCK, cap), device=dev)
-
-    def serve_product():
-        for b, off, size in windows:
-            torch.mm(qrows[b * QUERY_BLOCK : (b + 1) * QUERY_BLOCK],
-                     engine.shard_points[off : off + size].T,
-                     out=mm_out[:, :size])
-
-    measure("bintop2_blocks",
-            f"{row_off.shape[0]} blocks x {QUERY_BLOCK} q, cap {cap}, "
-            f"{len(windows)} live, {int(sizes.sum())} live rows, "
-            f"{int(live_q[sizes > 0].sum())} of {len(windows) * QUERY_BLOCK} "
-            "query rows real (the rest pad each shard's last block)",
-            lambda: bs.bintop2_blocks(*scan),
-            lambda: bs.bintop2_blocks_plain(*scan), serve_product,
-            scan_bounds(D, QUERY_BLOCK, cap, row_off, sizes, live_q),
-            lambda got, want: compare_bins(
-                got, want, qrows, engine.shard_points,
-                row_off.repeat_interleave(QUERY_BLOCK), "l2"), reps=10)
-    del mm_out
+    stats = {
+        "binmin_scan": measure_base_scan("binmin_scan", "", q_dev, base, tag,
+                                         id_rows=256, reps=3),
+        "bintop2_blocks": measure_serve_scan("bintop2_blocks", engine, q_dev,
+                                             NPROBES, VOTING_T, tag),
+    }
 
     brute_ms = cuda_ms(lambda: bs.fused_topk(q_dev, base, N, K), reps=3)
     log(f"brute fused_topk {brute_ms:.3f} ms/batch of {NQ} "
@@ -931,7 +1403,9 @@ def main(profile_only: bool = False) -> int:
     log(f"serve {serve_ms:.3f} ms/batch of {NQ} ({NQ / serve_ms * 1e3:.1f} QPS), "
         f"nprobes={NPROBES}, {brute_ms / serve_ms:.2f}x brute {tag}")
     if profile_only:
-        profile_serve(engine, q_dev, tag)
+        profile_batch(lambda: engine.serve_device(
+            q_dev, K, NPROBES, voting_t=VOTING_T, query_block=QUERY_BLOCK),
+            "serve", tag, rows=14)
         return 0
 
     # ---- cold build: the port builds the artifacts itself ----
@@ -939,22 +1413,50 @@ def main(profile_only: bool = False) -> int:
     shipped["assign"] = art["assign"].astype(np.int32)
     shipped["curve"] = ref_curve
     shipped["first_probe"] = engine.probe_order(q_dev, 1, voting_t=VOTING_T)
-    del engine, base, scan, qrows, row_off, sizes, live_q
+    del engine, base
     torch.cuda.empty_cache()
     build_launches = cold_build(dev, pts, q, shipped, tag)
     torch.cuda.empty_cache()
 
-    # ---- query attribution through the port's CLIs ----
-    qa_launches = query_attribution(dev, pts, q, shipped, tag)
+    hard_art = dict(np.load(HARD_ARTIFACT))
+    hard_art["assign"] = hard_art["assign"].astype(np.int32)
+    hard_art["curve"] = hard_art["curve"].astype(np.float64)
+    scratch = tempfile.mkdtemp(prefix="gpann_smoke_")
+    try:
+        # ---- query attribution through the port's CLIs ----
+        qa_launches, qa_files = query_attribution(dev, pts, q, shipped, tag,
+                                                  scratch)
+        os.remove(os.path.join(scratch, "base.fbin"))
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+        # ---- the bench, both configs; the streamed engine ----
+        bench_launches, hard, hard_out, b1_hard = bench_phase(
+            dev, pts, q, hard_art, os.path.join(scratch, "cache"), tag)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        stream_launches, b2_shard = streamed_phase(
+            dev, hard, hard_out, hard_art, os.path.join(scratch, "store"), tag)
+        del hard
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(scratch, "store"))
+        shutil.rmtree(os.path.join(scratch, "cache"))
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+        # ---- scale_bench and the analysis CLIs ----
+        scale_launches = scale_phase(dev, os.path.join(scratch, "scale"), tag)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        analysis_launches = analysis_phase(dev, pts, q, qa_files, scratch, tag)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # launches: the serve, cold-build and query-attribution paths' runs
+    # launches: all six paths' runs for the two entry points at path 1's
+    # shapes; the paths' own for the entries at their shapes
+    paths = (launches, build_launches, qa_launches, bench_launches,
+             stream_launches, scale_launches, analysis_launches)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name],
-         "launches": launches[name] + build_launches[name] + qa_launches[name],
-         **stats[name]}
-        for name in ("binmin_scan", "bintop2_blocks")]}), flush=True)
+        _kernel_entry(name, sum(p[name] for p in paths), stats[name])
+        for name in ("binmin_scan", "bintop2_blocks")] + [b2_shard, b1_hard]}),
+        flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,20 @@
-"""Native (C++) host ops of the graph partitioner, bound with ctypes
-(counterpart of ``gpann_tpu/native``).
+"""Native (C++) host ops, bound with ctypes (counterpart of
+``gpann_tpu/native``).
 
 ``src/graph_ops.cc`` is a copy of ``gpann_tpu/native/src/graph_ops.cc``:
 heavy-edge mutual matching for coarsening, greedy BFS region growing for the
-initial partition, and the capacity-repair pass. These are irregular host
-loops, not device work. At first use :func:`library` compiles the source
-with ``g++`` into ``gpann_tpu_torch/_build/libgpann_native_<hash>.so``
-(ignored by git; the hash covers the source and the flags, so an edit
-rebuilds it). A failed build raises: the partitioner has no path without
-these ops. Their plain numpy versions are in :mod:`gpann_tpu_torch.gp.lp`.
-Nothing is built at import time.
+initial partition, and the capacity-repair pass of the graph partitioner.
+``src/synth_gen.cc`` is a copy of ``gpann_tpu/native/src/synth_gen.cc``: the
+counter-based "hard2" dataset generator with fused byte quantisation. These
+are irregular host loops, not device work. At first use :func:`library`
+compiles both sources with ``g++`` into one library,
+``gpann_tpu_torch/_build/libgpann_native_<hash>.so`` (ignored by git; the
+hash covers both sources and the flags, so an edit rebuilds it). A failed
+build raises: the partitioner and the generator have no path without these
+ops. The plain numpy versions of the graph ops are in
+:mod:`gpann_tpu_torch.gp.lp`, the generator's numpy oracle is
+:func:`gpann_tpu_torch.eval.synth._hard2_chunk_numpy`. Nothing is built at
+import time.
 """
 
 from __future__ import annotations
@@ -23,24 +28,28 @@ import subprocess
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "src", "graph_ops.cc")
+SOURCES = [os.path.join(_HERE, "src", "graph_ops.cc"),
+           os.path.join(_HERE, "src", "synth_gen.cc")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-# no -march=native: the library must not depend on the build host's CPU
+# no -march=native: the library must not depend on the build host's CPU.
+# -ffp-contract=off: the generator and its numpy oracle must round alike.
 CXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17"]
 
 
 def build() -> str:
-    """Compile ``src/graph_ops.cc`` unless the hashed library exists; returns
-    its path. Raises ``RuntimeError`` when ``g++`` fails."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + f.read())
+    """Compile ``src/*.cc`` into one library unless the hashed library
+    exists; returns its path. Raises ``RuntimeError`` when ``g++`` fails."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR,
                        f"libgpann_native_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib):
         return lib
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run(["g++", *CXX_FLAGS, SOURCE, "-o", tmp],
+    proc = subprocess.run(["g++", *CXX_FLAGS, *SOURCES, "-o", tmp],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr}")
@@ -55,6 +64,13 @@ def library() -> ctypes.CDLL:
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
+    lib.synth_hard2_chunk.restype = None
+    lib.synth_hard2_chunk.argtypes = [
+        ctypes.c_uint64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, f32p, f32p, f64p, ctypes.c_int32, ctypes.c_float,
+        ctypes.c_void_p,
+    ]
     lib.heavy_edge_matching.restype = ctypes.c_int64
     lib.heavy_edge_matching.argtypes = [
         ctypes.c_int64, i64p, i32p, f32p, f32p, ctypes.c_float,
@@ -130,3 +146,29 @@ def force_balance(indptr, indices, weights, node_w, k, cap,
     library().force_balance(n, indptr, indices, weights, node_w, int(k),
                             float(cap), part)
     return part
+
+
+_SYNTH_DTYPES = {"f32": (np.float32, 0), "u8": (np.uint8, 1),
+                 "i8": (np.int8, 2)}
+
+
+def synth_hard2_chunk(seed, row0, m, d, centers, scales, cdf, dtype,
+                      q_scale) -> np.ndarray:
+    """[m, d] chunk of the "hard2" dataset starting at global row ``row0``
+    (counter-based streams: the value of a row does not depend on the
+    chunking). ``dtype`` is "f32", "u8" or "i8"; byte types are quantised
+    with ``q_scale`` in the same pass."""
+    np_dtype, code = _SYNTH_DTYPES[dtype]
+    centers = np.ascontiguousarray(centers, np.float32)
+    scales = np.ascontiguousarray(scales, np.float32)
+    cdf = np.ascontiguousarray(cdf, np.float64)
+    if centers.shape != (len(cdf), d) or scales.shape != centers.shape:
+        raise ValueError(
+            f"centers {centers.shape} and scales {scales.shape} must both be "
+            f"({len(cdf)}, {d})")
+    out = np.empty((m, d), np_dtype)
+    library().synth_hard2_chunk(
+        int(seed) & (2**64 - 1), int(row0), int(m), int(d), len(cdf),
+        centers, scales, cdf, code, float(q_scale),
+        out.ctypes.data_as(ctypes.c_void_p))
+    return out

@@ -61,6 +61,13 @@ NEW_MODULES = (
     "gpann_tpu_torch.cli.small_scale_queries",
     "gpann_tpu_torch.cli.query_attribution",
     "gpann_tpu_torch.cli.oracle_recall", "gpann_tpu_torch.cli.convert",
+    # the bench and the streamed path
+    "gpann_tpu_torch.native", "gpann_tpu_torch.eval.synth",
+    "gpann_tpu_torch.search.relayout", "gpann_tpu_torch.search.streamed",
+    "gpann_tpu_torch.cli.scale_bench", "gpann_tpu_torch.cli.bench",
+    "gpann_tpu_torch.cli.graph_quality_benchmark",
+    "gpann_tpu_torch.cli.analyze_approximation_losses",
+    "gpann_tpu_torch.cli.extract_recall",
 )
 
 
