@@ -11,7 +11,7 @@ batch by kernel (``torch.profiler``) and prints no result lines. The first
 builds the bin-top-2 kernel from ``gpann_tpu_torch/csrc/``, holds it
 against its plain PyTorch version (moderate shapes, shapes its tiling can
 get wrong, ties, one tile against fp64 beside a CPU rehearsal of its
-split-TF32 arithmetic; two launches must be bit-equal), then drives six
+split-TF32 arithmetic; two launches must be bit-equal), then drives seven
 paths at the bench configuration (8M x 96 points regenerated from seed 555,
 4096 queries, k=10, 32 shards, eps 0.05):
 
@@ -45,12 +45,24 @@ paths at the bench configuration (8M x 96 points regenerated from seed 555,
    (``relayout_to_store``) and served from the host by
    ``StreamedShardEngine``, one launch of kernel B2 per probed shard; its
    curve is held against the resident engine's of path 4, a sliced pass
-   and a pruned pass (sub-cluster-major store) against the whole one.
+   against the whole one, and on a small batch the pruned pass on a
+   sub-cluster-major store against the same store unpruned and against the
+   shard-major store.
 6. ``cli.scale_bench`` as a user runs it (``hard2`` bytes from a virtual
    base, fused assign + relayout, 64 shards), twice (the second call reuses
    every cache), then ``cli.graph_quality_benchmark``,
    ``cli.analyze_approximation_losses`` and ``cli.extract_recall`` once
    each.
+7. Multi-rank: the engines of ``gpann_tpu_torch.dist`` on path 1's data and
+   artifacts in 2 ranks (dp 1 x shard 2), then 4 (dp 2 x shard 2, routing
+   through kernel B2), spawned with a timeout, sharing the card and
+   exchanging over gloo; each rank copies only its shards from a
+   memory-mapped copy of the points. Recall against path 1's, the probed
+   search against ``IVFIndex.search_probed``, a sharded Lloyd round that
+   repeats itself, each rank's batch split by step (``torch.profiler``),
+   B2 against its plain version at the routing shape; then
+   ``cli.distributed_bench`` in 2 ranks through ``torch.distributed.run``
+   on a 1M-point prefix.
 
 Kernel times are CUDA-event times; build stages are wall seconds with a
 CUDA synchronisation at each stage end. Any failed check raises, so the exit
@@ -59,8 +71,8 @@ code is non-zero; there is no CPU fallback.
 The last line is ``{"ok": true, "device": {...}}``; two lines before it one
 JSON object lists each kernel entry point with its launches, its error
 against the plain version, its times, its bound (``scan_bounds``) and the
-TFLOP/s it reached: first at the shapes of path 1 with the launches of all
-six paths, then at the shapes paths 4 and 5 give it with those paths'
+TFLOP/s it reached: first at the shapes of path 1 with the launches of
+paths 1-6, then at the shapes paths 5, 4 and 7 give it with those paths'
 launches.
 """
 
@@ -145,6 +157,17 @@ SCALE_BALANCE_MAX = 1.05
 SCALE_LAST_PREFIX_MIN = 0.999  # all 64 probes, no pruning
 # one configuration of the graph-quality grid (the full grid is 125)
 GQ_GRID = dict(REPS_GRID=(3,), FANOUT_GRID=(3,), CLUSTER_SIZE_GRID=(1000,))
+# multi-rank phase: (ranks, dp, voting_impl); the ranks share the card and
+# exchange over gloo (NCCL refuses two ranks on one device)
+MR_RUNS = ((2, 1, "exact"), (4, 2, "binned"))
+MR_MICROBATCH = 128
+MR_CHECK_NQ = 256             # queries held against IVFIndex.search_probed
+MR_CHECK_NPROBES = 3
+MR_LLOYD_N = 1_000_000        # sharded Lloyd round on this prefix ...
+MR_LLOYD_K = 32               # ... into this many clusters
+MR_BENCH_N = 1_000_000        # cli.distributed_bench on this prefix ...
+MR_BENCH_NQ = 1024            # ... and this many queries (cut from 4096)
+MR_TIMEOUT = 300              # seconds one spawn of ranks may take
 SOURCE = "gpann_tpu_torch/csrc/bintop2.cu"
 REPLACES = {
     "binmin_scan": "gpann_tpu/search/pallas_scan.py:39",      # _bintop2_kernel
@@ -1125,6 +1148,9 @@ def streamed_phase(dev, hard: dict, hard_out: dict, shipped_hard: dict,
 
     # ---- pruned: a sub-cluster-major store, a small batch ----
     qsub, ksub = q[:STREAM_SUB_NQ], kth[:STREAM_SUB_NQ]
+    kernels.reset_launches()
+    major, _ = engine.recall_curve(qsub, K, ksub, STREAM_NPROBES, HARD_VOTING_T)
+    launches["binmin_scan"] += kernels.LAUNCHES["binmin_scan"]
     t0 = time.perf_counter()
     engine.build_subclusters_store(target_sub_size=STREAM_SUB_SIZE, seed=SEED)
     log(f"streamed: store regrouped into "
@@ -1140,10 +1166,17 @@ def streamed_phase(dev, hard: dict, hard_out: dict, shipped_hard: dict,
     log(f"streamed pruned, {STREAM_SUB_NQ} queries, sub_nprobe "
         f"{STREAM_SUB_NPROBE}: {cstats['bytes_uploaded'] / 1e9:.3f} GB against "
         f"{wstats['bytes_uploaded'] / 1e9:.3f} GB whole; recall@10 at nprobes "
-        f"{STREAM_NPROBES} {cut[-1]:.5f} against {whole[-1]:.5f} (may lose "
-        f"{STREAM_SUB_LOSS})")
+        f"{STREAM_NPROBES} {cut[-1]:.5f}")
+    log(f"streamed regrouped store, unpruned, binned scan: recall@10 at "
+        f"nprobes {STREAM_NPROBES} {whole[-1]:.5f}")
+    log(f"streamed shard-major store, binned scan: recall@10 at nprobes "
+        f"{STREAM_NPROBES} {major[-1]:.5f}")
+    log(f"streamed: pruning alone loses {whole[-1] - cut[-1]:.5f} (may lose "
+        f"{STREAM_SUB_LOSS}); the regrouped row order {major[-1] - whole[-1]:.5f} "
+        f"(need <= {RECALL_SLACK})")
     assert cstats["bytes_uploaded"] < wstats["bytes_uploaded"]
     assert cut[-1] >= whole[-1] - STREAM_SUB_LOSS
+    assert whole[-1] >= major[-1] - RECALL_SLACK
     return launches, entry
 
 
@@ -1304,6 +1337,250 @@ def analysis_phase(dev, pts: np.ndarray, q: np.ndarray, qa_files: dict,
     return launches
 
 
+def _multirank_steps(engine, q: np.ndarray, dev, cfg: dict) -> dict:
+    """One batch through ``engine.serve_device`` as it is, twice: once
+    alone, for its wall milliseconds (a synchronisation at the end), then
+    under ``torch.profiler`` for its split by the steps that
+    ``serve_device`` marks (``dist.mesh.SERVE_STEPS``): per step, summed
+    over the microbatches, the host milliseconds inside the step's ranges
+    and the device milliseconds of the kernels and copies launched in
+    them, and the seconds the profiled call took in all (the profiler's
+    start and its event processing included). The ranks meet at a barrier
+    before each batch (outside the steps), so that no rank's first
+    exchange waits for another's start."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpann_tpu_torch.dist.mesh import SERVE_STEPS
+
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    qd = torch.from_numpy(q).to(dev)
+
+    def batch():
+        engine.serve_device(qd, cfg["k"], cfg["nprobes"],
+                            voting_t=cfg["voting_t"],
+                            microbatch=cfg["microbatch"])
+        sync()
+
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    batch()
+    out = {"wall": (time.perf_counter() - t0) * 1e3}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        dist.barrier()
+        batch()
+    rows = {e.key: e for e in prof.key_averages()
+            if e.key in SERVE_STEPS
+            and e.device_type == torch.autograd.DeviceType.CPU}
+    out["profile_s"] = time.perf_counter() - t0
+    for step in SERVE_STEPS:
+        out[step] = (rows[step].cpu_time_total / 1e3,
+                     rows[step].device_time_total / 1e3)
+    return out
+
+
+def multirank_rank(scratch: str, dp: int, voting_impl: str, device: str) -> dict:
+    """One rank of the multi-rank phase, in a process of its own (started by
+    ``run_ranks``; all ranks on ``device``): builds its part of the
+    serving engine from the memory-mapped points (only its own shards),
+    serves the queries, searches the check queries on the given probes,
+    times one batch and splits it by step (:func:`_multirank_steps`) and
+    runs two sharded Lloyd rounds. Its
+    inputs and sizes come from ``mr_inputs.npz``, which the phase writes."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.core.partition import partition_to_clusters
+    from gpann_tpu_torch.dist import (DistributedServingEngine, shard_mesh,
+                                      sharded_lloyd_round)
+
+    dev = torch.device(device)
+    mesh = shard_mesh(dp=dp)
+    pts = np.load(os.path.join(scratch, "mr_points.npy"), mmap_mode="r")
+    inp = dict(np.load(os.path.join(scratch, "mr_inputs.npz")))
+    cfg = {key: int(inp[key]) for key in ("shards", "k", "nprobes", "voting_t",
+                                          "microbatch", "lloyd_n", "lloyd_k")}
+    q, k = inp["queries"], cfg["k"]
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (
+        lambda: None)
+    t0 = time.perf_counter()
+    engine = DistributedServingEngine(
+        pts, partition_to_clusters(inp["assign"], cfg["shards"]),
+        inp["routing_points"], inp["routing_labels"], mesh=mesh,
+        voting_impl=voting_impl, device=dev, backend="gloo")
+    sync()
+    build_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    d, i = engine.serve(q, k, cfg["nprobes"], voting_t=cfg["voting_t"],
+                        microbatch=cfg["microbatch"])
+    serve_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cd, ci = engine.search_probed(q[: len(inp["check_probes"])],
+                                  inp["check_probes"], k)
+    steps = _multirank_steps(engine, q, dev, cfg)
+    step = sharded_lloyd_round(mesh, cfg["lloyd_k"], device=dev,
+                               backend="gloo")
+    rows = np.array_split(np.arange(cfg["lloyd_n"]), mesh.world)[mesh.rank]
+    mine = np.array(pts[rows[0] : rows[-1] + 1])  # a writable copy
+    lloyd = [tuple(t.cpu().numpy() for t in step(mine, inp["lloyd_init"]))
+             for _ in range(2)]
+    return dict(rank=mesh.rank, mesh=mesh.shape, build_s=build_s,
+                serve_s=serve_s, shards=int(engine.shard_points.shape[0]),
+                capacity=engine.capacity, d=d, i=i, check_d=cd, check_i=ci,
+                steps=steps, lloyd=lloyd, launches=launches)
+
+
+def multirank_phase(dev, pts: np.ndarray, q: np.ndarray, art: dict,
+                    kth: np.ndarray, serve_recall: float, scratch: str,
+                    tag: str) -> dict:
+    """The multi-rank engines (module docstring, path 7): 2 ranks (dp 1 x
+    shard 2, exact voting), then 4 (dp 2 x shard 2, binned voting), all
+    sharing the card over gloo, then ``cli.distributed_bench`` through
+    ``torch.distributed.run``. Returns the ``kernels`` entry of B2 at the
+    shape of the ranks' routing (one microbatch against the routing points)
+    with the launches of the ranks' serves."""
+    import chip_smoke as this  # the ranks import their function by module
+    from gpann_tpu_torch.cluster.kmeans import _nearest64, random_sample
+    from gpann_tpu_torch.core.distances import sq_norms
+    from gpann_tpu_torch.core.metis_io import write_clusters
+    from gpann_tpu_torch.core.partition import partition_to_clusters
+    from gpann_tpu_torch.core.pointset import write_points
+    from gpann_tpu_torch.dist.launch import free_port, run_ranks
+    from gpann_tpu_torch.dist.mesh import SERVE_STEPS
+    from gpann_tpu_torch.eval.recall import recall_from_ids
+    from gpann_tpu_torch.search.ivf import IVFIndex
+    from gpann_tpu_torch.search.serve import _probe_rank
+
+    t_phase = time.perf_counter()
+    path = lambda name: os.path.join(scratch, name)  # noqa: E731
+    assign = art["assign"].astype(np.int32)
+    clusters = partition_to_clusters(assign, SHARDS)
+    rp = np.asarray(art["routing_points"], np.float32)
+    t0 = time.perf_counter()
+    np.save(path("mr_points.npy"), pts)
+    check_q = q[:MR_CHECK_NQ]
+    probes = _probe_rank(
+        torch.from_numpy(check_q).to(dev), torch.from_numpy(rp).to(dev),
+        torch.from_numpy(art["routing_labels"].astype(np.int64)).to(dev),
+        torch.from_numpy((rp.astype(np.float64) ** 2).sum(1).astype(
+            np.float32)).to(dev), s=SHARDS, voting_t=VOTING_T,
+        rule="min_dist", spann_eps=0.6, nprobes=MR_CHECK_NPROBES,
+        metric="l2", voting_impl="exact").cpu().numpy()
+    lloyd_init = random_sample(pts[:MR_LLOYD_N], MR_LLOYD_K, seed=SEED)
+    np.savez(path("mr_inputs.npz"), queries=q, assign=assign,
+             routing_points=rp, routing_labels=art["routing_labels"],
+             check_probes=probes, lloyd_init=lloyd_init, shards=SHARDS, k=K,
+             nprobes=NPROBES, voting_t=VOTING_T, microbatch=MR_MICROBATCH,
+             lloyd_n=MR_LLOYD_N, lloyd_k=MR_LLOYD_K)
+    log(f"multi-rank: inputs written in {time.perf_counter() - t0:.3f} s")
+
+    # the references: one process, the same probes / prefix
+    ivf = IVFIndex(pts, clusters, device=dev)
+    want_d, want_i = ivf.search_probed(check_q, probes, K)
+    del ivf
+    p64 = torch.from_numpy(pts[:MR_LLOYD_N]).to(dev).double()
+    want_assign = _nearest64(p64, sq_norms(p64),
+                             torch.from_numpy(lloyd_init).to(dev),
+                             "l2").cpu().numpy()
+    del p64
+    torch.cuda.empty_cache()
+
+    launches = {"binmin_scan": 0, "bintop2_blocks": 0}
+    for world, dp, voting in MR_RUNS:
+        t0 = time.perf_counter()
+        outs = run_ranks(this.multirank_rank, world,
+                         (scratch, dp, voting, str(dev)), timeout=MR_TIMEOUT)
+        secs = time.perf_counter() - t0
+        what = f"multi-rank {world} ranks (dp {dp} x shard {world // dp}, " \
+               f"voting {voting})"
+        first = outs[0]
+        for out in outs:
+            assert out["mesh"] == {"dp": dp, "shard": world // dp}
+            for key in ("d", "i", "check_d", "check_i"):
+                np.testing.assert_array_equal(out[key], first[key], key)
+            for c, a in out["lloyd"]:
+                np.testing.assert_array_equal(c, first["lloyd"][0][0])
+                np.testing.assert_array_equal(a, first["lloyd"][0][1])
+        d, i = first["d"], first["i"]
+        assert d.shape == (NQ, K) and np.isfinite(d).all()
+        assert ((i >= 0) & (i < N)).all()
+        recall = recall_from_ids(pts, q, i, kth, K)
+        log(f"{what}: {secs:.3f} s; recall@10 nprobes={NPROBES} {recall:.5f} "
+            f"(resident engine {serve_recall:.5f}; need within {RECALL_SLACK})")
+        assert abs(recall - serve_recall) <= RECALL_SLACK
+        np.testing.assert_allclose(first["check_d"], want_d, rtol=RTOL,
+                                   atol=ATOL)
+        assert (np.sort(first["check_i"], 1) == np.sort(want_i, 1)).all()
+        log(f"{what}: {MR_CHECK_NQ} queries at {MR_CHECK_NPROBES} probes "
+            f"against IVFIndex.search_probed: distances within rtol {RTOL}, "
+            f"ids equal as sets")
+        (c, a), _ = first["lloyd"]
+        np.testing.assert_array_equal(a, want_assign)
+        log(f"{what}: sharded Lloyd round (k {MR_LLOYD_K}, {MR_LLOYD_N} "
+            f"points) equal on every rank and in two calls, assignment equal "
+            f"to one process's; {int((np.bincount(a, minlength=MR_LLOYD_K) > 0).sum())} "
+            f"clusters kept members")
+        for out in outs:
+            st = out["steps"]
+            log(f"{what} rank {out['rank']}: {out['shards']} shards, capacity "
+                f"{out['capacity']}, built in {out['build_s']:.3f} s, serve "
+                f"{out['serve_s']:.3f} s; one {NQ}-query serve_device batch "
+                f"{st['wall']:.3f} ms wall; profiled, host / device ms by "
+                f"step: " + ", ".join(
+                    f"{step} {st[step][0]:.3f} / {st[step][1]:.3f}"
+                    for step in SERVE_STEPS)
+                + f" (the profiled call {st['profile_s']:.3f} s in all); "
+                f"launches {out['launches']} {tag}")
+            for name in launches:
+                launches[name] += out["launches"][name]
+        if voting == "binned":
+            assert all(o["launches"]["binmin_scan"] > 0 for o in outs)
+    # the ranks' scans are plain; their only kernel is B2 in the routing
+    assert launches["bintop2_blocks"] == 0 and launches["binmin_scan"] > 0, \
+        launches
+
+    # B2 against its plain version at the shape of one rank's routing step
+    qs = torch.from_numpy(q[:MR_MICROBATCH]).to(dev)
+    rp_dev = torch.from_numpy(rp).to(dev)
+    entry = _kernel_entry(
+        "binmin_scan (multi-rank route)", launches["binmin_scan"],
+        measure_base_scan("binmin_scan (multi-rank route)",
+                          ", one microbatch against the routing points", qs,
+                          rp_dev, tag, atol=term_atol(qs, rp_dev)))
+    del qs, rp_dev
+
+    # ---- cli.distributed_bench through the launcher ----
+    t0 = time.perf_counter()
+    write_points(path("mr_base.fbin"), pts[:MR_BENCH_N])
+    write_points(path("mr_query.fbin"), q[:MR_BENCH_NQ])
+    write_clusters(path("mr_part"), partition_to_clusters(
+        assign[:MR_BENCH_N], SHARDS))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+         "-m", "gpann_tpu_torch.cli.distributed_bench", path("mr_base.fbin"),
+         path("mr_query.fbin"), str(K), path("mr_part"), str(NPROBES),
+         "--distributed", "--device", dev.type, "--backend", "gloo"],
+        cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=MR_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"distributed_bench exited with {proc.returncode}:"
+                           f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().split("\n")
+    for line in lines:
+        log(f"distributed_bench: {line}")
+    assert len(lines) == 5 and lines[0].startswith(f"2 ranks ({dev.type})"), lines
+    log(f"distributed_bench on {MR_BENCH_N} points, {MR_BENCH_NQ} queries, "
+        f"2 ranks: "
+        f"{time.perf_counter() - t0:.3f} s {tag}")
+    log(f"multi-rank phase {time.perf_counter() - t_phase:.3f} s {tag}")
+    return entry
+
+
 def main(profile_only: bool = False) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1445,18 +1722,24 @@ def main(profile_only: bool = False) -> int:
         scale_launches = scale_phase(dev, os.path.join(scratch, "scale"), tag)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
         analysis_launches = analysis_phase(dev, pts, q, qa_files, scratch, tag)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+        # ---- the multi-rank engines, ranks sharing the card ----
+        b2_route = multirank_phase(dev, pts, q, art, kth, serve_recall,
+                                   scratch, tag)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # launches: all six paths' runs for the two entry points at path 1's
-    # shapes; the paths' own for the entries at their shapes
+    # launches: paths 1-6's runs for the two entry points at path 1's
+    # shapes; the paths' own for the entries at their shapes (path 7's B2
+    # at the routing shape only)
     paths = (launches, build_launches, qa_launches, bench_launches,
              stream_launches, scale_launches, analysis_launches)
     print(json.dumps({"kernels": [
         _kernel_entry(name, sum(p[name] for p in paths), stats[name])
-        for name in ("binmin_scan", "bintop2_blocks")] + [b2_shard, b1_hard]}),
-        flush=True)
+        for name in ("binmin_scan", "bintop2_blocks")]
+        + [b2_shard, b1_hard, b2_route]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,9 @@ loops over shards or over steps of query blocks:
 - :meth:`IVFIndex.search_all_shards` — every query against every shard,
   per-(shard, query) top-k (``shard_searches.cpp:21-96``).
 - :meth:`IVFIndex.search_probed` — dense path: a running top-k over all
-  shards with queries that do not probe a shard masked out.
+  shards, each shard meeting only the queries that probe it
+  (:func:`_scan_probed_dense`, also the local scan of the multi-rank
+  engines of ``gpann_tpu_torch.dist``).
 - :meth:`IVFIndex.search_probed_grouped` — grouped path: the (query, shard)
   probe pairs are sorted by shard on the host, padded into fixed query
   blocks, and only probed pairs are computed, many blocks per batched
@@ -84,6 +86,99 @@ def _merge_topk(best_d: torch.Tensor, best_i: torch.Tensor, d: torch.Tensor,
     return sd[:, :k], cat_i.gather(1, order[:, :k])
 
 
+def _shard_bias(shard_points: torch.Tensor, shard_sizes: torch.Tensor,
+                metric: Metric) -> torch.Tensor:
+    """The scan's per-row bias [s, cap]: |x|^2 (L2) or 1 (MIPS), +inf on
+    rows past a shard's size. A row ranks by bias + alpha * q.x."""
+    s, cap = shard_points.shape[:2]
+    dev = shard_points.device
+    live = torch.arange(cap, device=dev)[None, :] < shard_sizes[:, None]
+    bias = (sq_norms(shard_points) if metric == "l2"
+            else torch.ones((s, cap), device=dev))
+    return bias.masked_fill_(~live, torch.inf)
+
+
+def _blocks_topk(qs: torch.Tensor, block: torch.Tensor, bias: torch.Tensor,
+                 ids: torch.Tensor, k: int, metric: Metric, rescore: bool):
+    """Top-k of query blocks ``qs`` [c, r, d], block j against shard rows
+    ``block[j]`` [cap, d] with their bias [c, cap] and global ids [c, cap]:
+    (dists [c, r, k], global ids [c, r, k])."""
+    c, r, dim = qs.shape
+    cap = block.shape[1]
+    # one pass over the [c, r, cap] tile: the bias rides in the GEMM
+    dm = torch.baddbmm(bias[:, None, :], qs, block.transpose(1, 2),
+                       alpha=-1.0 if metric == "mips" else -2.0)
+    d, pos = torch.topk(dm, _scan_k(k, cap, rescore), dim=2, largest=False)
+    del dm
+    if metric == "l2":
+        # |q|^2 is constant along a row: added to the kept entries only
+        d = d + sq_norms(qs)[:, :, None]
+    # positions in the c blocks laid end to end
+    pos = (pos + (torch.arange(c, device=qs.device) * cap)[:, None, None]
+           ).view(c * r, -1)
+    d = d.view(c * r, -1)
+    if rescore:
+        d, pos = _exact_rescore(qs.reshape(c * r, dim),
+                                block.reshape(c * cap, dim), d, pos, k, metric)
+    else:
+        d, pos = d[:, :k], pos[:, :k]
+    return d.view(c, r, k), ids.reshape(-1)[pos].view(c, r, k)
+
+
+def _scan_probed_dense(queries: torch.Tensor, probes: torch.Tensor,
+                       shard_points: torch.Tensor, shard_sizes: torch.Tensor,
+                       shard_ids: torch.Tensor, k: int, metric: Metric,
+                       shard_offset: int = 0, rescore: bool = True,
+                       bias: Optional[torch.Tensor] = None):
+    """Running top-k over a ``[s, cap, d]`` stack of shards: query q meets
+    shard b only where ``shard_offset + b`` appears in ``probes[q]``; rows
+    at or past a shard's size never count. Returns device tensors (dists
+    [m, k], global ids [m, k] int32); (+inf, -1) where fewer than k rows
+    were met. The counterpart of ``gpann_tpu/search/ivf.py::
+    _scan_probed_dense`` and of the local scan of ``gpann_tpu/dist/mesh.py``
+    (``shard_offset``: the global id of this stack's first shard). An
+    index that holds the stack's :func:`_shard_bias` passes it as ``bias``;
+    otherwise each visited shard's is computed.
+
+    The JAX scan masks every query that does not probe a shard; here each
+    shard meets only the queries that probe it (in row chunks under
+    ``TILE_BYTES``), and shards that none probes or that are empty are
+    skipped: a masked row adds only +inf candidates, which the merge drops,
+    so the result is the same. The (shard, query) pairs are found at once,
+    with two waits for the device a call rather than one a shard: where
+    several processes share a device, each wait can last a time slice of
+    the others."""
+    m = queries.shape[0]
+    dev = queries.device
+    s, cap = shard_points.shape[:2]
+    best_d = torch.full((m, k), torch.inf, device=dev)
+    best_i = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    # hit[q, b]: query q probes local shard b (column s takes the rest)
+    local = probes.to(dev).long() - shard_offset
+    local = torch.where((local >= 0) & (local < s), local, s)
+    hit = torch.zeros((m, s + 1), dtype=torch.bool, device=dev).scatter_(
+        1, local, True)[:, :s] & (shard_sizes > 0)[None, :]
+    pairs = torch.nonzero(hit.T)[:, 1]  # queries, shard by shard
+    step = _row_chunk(cap)
+    start = 0
+    for b, count in enumerate(hit.sum(dim=0).tolist()):
+        rows, start = pairs[start : start + count], start + count
+        if count == 0:
+            continue
+        sel = slice(b, b + 1)
+        b_bias = (_shard_bias(shard_points[sel], shard_sizes[sel], metric)
+                  if bias is None else bias[sel])
+        for r0 in range(0, count, step):
+            r = rows[r0 : r0 + step]
+            d, i = _blocks_topk(queries[r][None], shard_points[sel], b_bias,
+                                shard_ids[sel], k, metric, rescore)
+            best_d[r], best_i[r] = _merge_topk(best_d[r], best_i[r], d[0],
+                                               i[0], k)
+    if metric == "l2":
+        best_d = best_d.clamp(min=0.0)  # +inf stays +inf
+    return best_d, best_i
+
+
 class IVFIndex:
     """Shard-major inverted file over a clustering of the base points,
     resident on ``device``.
@@ -121,14 +216,7 @@ class IVFIndex:
             ids[b, : len(members)] = members
         self.shard_points = blocks
         self.shard_sizes = torch.as_tensor(sizes).to(self.device)
-        # the scan ranks a row by bias + alpha * q.x: |x|^2 - 2 q.x (L2) or
-        # 1 - q.x (MIPS); rows past a shard's size carry a +inf bias
-        live = (torch.arange(cap, device=self.device)[None, :]
-                < self.shard_sizes[:, None])
-        bias = (sq_norms(blocks) if metric == "l2"
-                else torch.ones((self.num_shards, cap), device=self.device))
-        self._bias = bias.masked_fill_(~live, torch.inf)  # [s, cap]
-        self._alpha = -1.0 if metric == "mips" else -2.0
+        self._bias = _shard_bias(blocks, self.shard_sizes, metric)  # [s, cap]
         self.shard_ids = torch.as_tensor(ids).to(self.device)
         self.sizes_np = sizes
         # overlap detection: dedup across probes is only needed when some
@@ -140,41 +228,15 @@ class IVFIndex:
         )
         self.overlapping = len(np.unique(all_ids)) < len(all_ids)
 
-    def _blocks_topk(self, qs: torch.Tensor, shards, k: int,
-                     probing: Optional[torch.Tensor] = None):
+    def _blocks_topk(self, qs: torch.Tensor, shards, k: int):
         """Top-k of query blocks ``qs`` [c, r, d], block j within shard
         ``shards[j]``: (dists [c, r, k], global ids [c, r, k]).
 
         ``shards`` is an int (one shard, read in place; c = 1) or an int64
-        tensor [c] (those shards' rows are gathered). Rows past a shard's
-        size, and queries with ``probing == False`` ([c, r]), are masked to
-        +inf."""
+        tensor [c] (those shards' rows are gathered)."""
         sel = slice(shards, shards + 1) if isinstance(shards, int) else shards
-        block, ids = self.shard_points[sel], self.shard_ids[sel]
-        c, r, dim = qs.shape
-        cap = block.shape[1]
-        # one pass over the [c, r, cap] tile: the bias rides in the GEMM
-        dm = torch.baddbmm(self._bias[sel][:, None, :], qs,
-                           block.transpose(1, 2), alpha=self._alpha)
-        if probing is not None:
-            dm.masked_fill_(~probing[:, :, None], torch.inf)
-        d, pos = torch.topk(dm, _scan_k(k, cap, self.rescore), dim=2,
-                            largest=False)
-        del dm
-        if self.metric == "l2":
-            # |q|^2 is constant along a row: added to the kept entries only
-            d = d + sq_norms(qs)[:, :, None]
-        # positions in the c blocks laid end to end
-        pos = (pos + (torch.arange(c, device=self.device) * cap)[:, None, None]
-               ).view(c * r, -1)
-        d = d.view(c * r, -1)
-        if self.rescore:
-            d, pos = _exact_rescore(qs.reshape(c * r, dim),
-                                    block.reshape(c * cap, dim), d, pos, k,
-                                    self.metric)
-        else:
-            d, pos = d[:, :k], pos[:, :k]
-        return d.view(c, r, k), ids.reshape(-1)[pos].view(c, r, k)
+        return _blocks_topk(qs, self.shard_points[sel], self._bias[sel],
+                            self.shard_ids[sel], k, self.metric, self.rescore)
 
     def _finish(self, d: torch.Tensor, i: torch.Tensor):
         if self.metric == "l2":
@@ -203,21 +265,12 @@ class IVFIndex:
         self, queries: np.ndarray, probes: np.ndarray, k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Dense path. ``probes`` [m, nprobes] shard ids (use -1 padding)."""
-        qs = to_device(queries, self.device)
-        pr = torch.as_tensor(np.asarray(probes, np.int32)).to(self.device)
-        m = qs.shape[0]
-        best_d = torch.full((m, k), torch.inf, device=self.device)
-        best_i = torch.full((m, k), -1, dtype=torch.int32, device=self.device)
-        step = _row_chunk(self.capacity)
-        for s in range(0, m, step):
-            q, p = qs[s : s + step], pr[s : s + step]
-            bd, bi = best_d[s : s + step], best_i[s : s + step]
-            for b in range(self.num_shards):
-                d, i = self._blocks_topk(q[None], b, k,
-                                         probing=(p == b).any(dim=1)[None])
-                bd, bi = _merge_topk(bd, bi, d[0], i[0], k)
-            best_d[s : s + step], best_i[s : s + step] = bd, bi
-        return self._finish(best_d, best_i)
+        d, i = _scan_probed_dense(
+            to_device(queries, self.device),
+            torch.as_tensor(np.asarray(probes, np.int32)), self.shard_points,
+            self.shard_sizes, self.shard_ids, k, self.metric,
+            rescore=self.rescore, bias=self._bias)
+        return d.cpu().numpy(), i.cpu().numpy()
 
     def search_probed_grouped(
         self,

@@ -156,6 +156,8 @@ class StreamedShardEngine:
             side = store.load_subclusters()
             if side is not None:
                 self.sub_slices, self.sub_centroids = side
+        # block size -> the fixed row permutation of a grouped block's scan
+        self._perms: dict = {}
 
     # -- in-shard sub-clusters (streamed-serving pruning) ----------------------
     def _subcluster_assign(self, rows, target_sub_size: int,
@@ -333,15 +335,18 @@ class StreamedShardEngine:
         return np.concatenate(out, axis=0)
 
     # -- one shard scan --------------------------------------------------------
-    def _scan_row_limit(self, mq: int, itemsize: int) -> Optional[int]:
+    def _scan_row_limit(self, mq: int, itemsize: int,
+                        grouped: bool = False) -> Optional[int]:
         """Most rows of one device block, or None for no limit.
 
         ``max_scan_rows`` when the engine was given one. Otherwise, on CUDA,
         what fits ``_FREE_SHARE`` of the device's free memory at this
         moment: a row costs its raw bytes, its f32 copy when the base is
-        bytes, and its share of the two [mq, 2 * rows / 128] summary arrays
-        (f32 distances and int32 ids). Shards above the limit scan as
-        consecutive row slices merged on the host."""
+        bytes, one more f32 copy when the block is ``grouped`` (the permuted
+        rows, see :meth:`_scan_block`), and its share of the two [mq, 2 *
+        rows / 128] summary arrays (f32 distances and int32 ids). Shards
+        above the limit scan as consecutive row slices merged on the
+        host."""
         if self.max_scan_rows is not None:
             return self.max_scan_rows
         if self.device.type != "cuda":
@@ -350,24 +355,27 @@ class StreamedShardEngine:
         per_row = self.dim * itemsize + mq * 2 * 8 / BIN
         if itemsize != 4:
             per_row += self.dim * 4
+        if grouped:
+            per_row += self.dim * 4
         return max(int(_FREE_SHARE * free / per_row) // BIN * BIN, BIN)
 
     def _scan_shard(
         self, q_block: torch.Tensor, shard_rows: np.ndarray, k: int,
-        stats: dict,
+        stats: dict, grouped: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k of each query row within one shard, slicing shards larger
         than the row limit into consecutive blocks whose per-block top-k
-        merge on the host (positions stay shard-local)."""
+        merge on the host (positions stay shard-local). ``grouped``: the
+        rows lie sub-cluster by sub-cluster (see :meth:`_scan_block`)."""
         size = len(shard_rows)
         limit = self._scan_row_limit(q_block.shape[0],
-                                     shard_rows.dtype.itemsize)
+                                     shard_rows.dtype.itemsize, grouped)
         if limit is None or size <= limit:
-            return self._scan_block(q_block, shard_rows, k, stats)
+            return self._scan_block(q_block, shard_rows, k, stats, grouped)
         parts_d, parts_p = [], []
         for lo in range(0, size, limit):
             d, p = self._scan_block(q_block, shard_rows[lo : lo + limit], k,
-                                    stats)
+                                    stats, grouped)
             parts_d.append(d)
             parts_p.append(p.astype(np.int64) + lo)
         dcat = np.concatenate(parts_d, axis=1)
@@ -378,9 +386,20 @@ class StreamedShardEngine:
 
     def _scan_block(
         self, q_block: torch.Tensor, rows: np.ndarray, k: int, stats: dict,
+        grouped: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k ``(dists [mq, k], block-local positions [mq, k])`` of each
-        query row within one device block of ``len(rows)`` real rows."""
+        query row within one device block of ``len(rows)`` real rows.
+
+        ``grouped``: the block holds sub-clusters side by side (a
+        sub-cluster-major store, or the union of chosen sub-clusters). Near
+        neighbours then share 128-row bins, of which the binned scan keeps
+        two rows each, so the binned scan runs over the block's rows in a
+        fixed permutation (seeded by the block's size, made once a size)
+        that scatters each sub-cluster over the bins; positions are mapped
+        back through it. The permuting gather is a second f32 copy of the
+        block on the device (budgeted by :meth:`_scan_row_limit`) and falls
+        inside ``device_scan_ms``."""
         size = len(rows)
         on_cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
@@ -396,7 +415,14 @@ class StreamedShardEngine:
         # bin-top-2 caps candidates at 2*ceil(size/BIN); tiny shards cannot
         # fill k finite candidates and take the exact scan (the guard of
         # ServingEngine._binned)
+        perm = None
         if self.scan_mode == "binned" and 2 * (size // BIN + 1) >= 4 * k:
+            if grouped:
+                if size not in self._perms:
+                    self._perms[size] = torch.from_numpy(
+                        np.random.default_rng(size).permutation(size))
+                perm = self._perms[size]
+                blk = blk[perm.to(self.device)]
             d, pos = fused_topk(q_block, blk, size, k, self.metric)
         else:
             d, pos = _masked_rescored_topk(q_block, blk, size, k, self.metric)
@@ -408,7 +434,11 @@ class StreamedShardEngine:
         stats["blocks_scanned"] += 1
         # inf-distance fillers may carry positions past the real rows:
         # clamp them so the callers' members[pos] stays in bounds
-        return dn, np.where(np.isfinite(dn), pn, 0)
+        live = np.isfinite(dn)
+        pn = np.where(live, pn, 0)
+        if perm is not None:
+            pn = np.where(live, perm.numpy()[pn], 0)
+        return dn, pn
 
     # -- full evaluation pass --------------------------------------------------
     def search(
@@ -437,7 +467,8 @@ class StreamedShardEngine:
         ``stats``: wall seconds ``route_s``, ``gather_s`` (host reads of
         the shards' rows), ``scan_s`` (upload + scan + read-back, of which
         ``upload_s`` is the host-to-device copy), ``device_scan_ms`` (the
-        scans alone by CUDA events; 0 on the CPU), ``shards_scanned``,
+        scans alone by CUDA events, a grouped block's permuting gather
+        included; 0 on the CPU), ``shards_scanned``,
         ``blocks_scanned`` (more than the shards when some were sliced) and
         ``bytes_uploaded``.
         """
@@ -475,6 +506,9 @@ class StreamedShardEngine:
             if len(qidx) == 0:
                 continue
             t0 = time.perf_counter()
+            # a sub-cluster-major store holds sub-clusters side by side in
+            # every read of its shards, pruned or whole
+            grouped = self.store is not None and self.sub_slices is not None
             if self.store is not None:
                 srows = self.store.shard_rows(b)
                 if use_subs and len(self.sub_centroids[b]) > sub_nprobe:
@@ -505,6 +539,7 @@ class StreamedShardEngine:
                 members = np.concatenate(
                     [self.sub_members[b][c] for c in chosen])
                 rows = np.asarray(self.points[members])
+                grouped = True
             else:
                 # memmap fancy-index: reads only this shard's rows
                 rows = np.asarray(self.points[members])
@@ -513,7 +548,8 @@ class StreamedShardEngine:
             mq = len(qidx)
             qb = queries[qidx]
             d, pos = self._scan_shard(
-                torch.as_tensor(qb, device=self.device), rows, k, stats)
+                torch.as_tensor(qb, device=self.device), rows, k, stats,
+                grouped)
             stats["scan_s"] += time.perf_counter() - t0
             stats["shards_scanned"] += 1
             stats["bytes_uploaded"] += qb.nbytes

@@ -119,6 +119,8 @@ def test_default_row_limit_comes_from_free_memory(cuda, setup):
     # a u8 row costs d raw + 4 d widened + its share of the summaries
     assert limit <= 0.5 * free / (5 * D) + 128
     assert limit > eng._scan_row_limit(NQ * 64, 1)
+    # a grouped block's permuted rows are one more f32 copy a row
+    assert eng._scan_row_limit(NQ, 1, grouped=True) <= 0.5 * free / (9 * D) + 128
     assert engine(setup, "cpu")._scan_row_limit(NQ, 4) is None
     assert engine(setup, cuda, max_scan_rows=77)._scan_row_limit(NQ, 4) == 77
 

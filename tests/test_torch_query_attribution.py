@@ -68,6 +68,10 @@ NEW_MODULES = (
     "gpann_tpu_torch.cli.graph_quality_benchmark",
     "gpann_tpu_torch.cli.analyze_approximation_losses",
     "gpann_tpu_torch.cli.extract_recall",
+    # the multi-rank slice
+    "gpann_tpu_torch.dist.mesh", "gpann_tpu_torch.dist.launch",
+    "gpann_tpu_torch.cli.distributed_bench", "gpann_tpu_torch.cli.experiments",
+    "gpann_tpu_torch.cli.small_scale_experiments", "gpann_tpu_torch.entry",
 )
 
 

@@ -7,8 +7,10 @@ sizes of ``tests/test_cli.py:133-189`` and ``tests/test_relayout.py``), the
 port's with ``--device cpu``. Tolerances, per test: scale_bench CSV rows and
 summaries equal apart from the seconds columns (and the streamed GB, which
 the port counts unpadded) for the k-means partitioner on the rows layout;
-curves within 0.03 on the shard-major layout (the port writes a chunk's rows
-in id order, so the store's uniform sample, hence the router, is another) and
+curves within 0.016-0.022 on the shard-major layout with the exact scan and
+0.03 with the binned scan (the port writes a chunk's rows in id order, so the
+store's uniform sample, hence the router, is another; see
+``SHARD_MAJOR_CURVE_ATOL``) and
 within 0.02 for the graph partitioner (its label propagation is not
 bit-identical between the packages); loss curves within 0.02; graph recall
 within 0.05.
@@ -93,9 +95,27 @@ SCALE_VARIANTS = {
                            "virtual", "--layout", "shard-major",
                            "--assign-chunks", "3", "--sub-nprobe", "2",
                            "--sub-size", "256"],
+    # the same store, scanned by the bin-top-2 scan (two rows a bin)
+    "virtual-store-subs-binned": ["--kind", "hard2", "--dtype", "u8", "--base",
+                                  "virtual", "--layout", "shard-major",
+                                  "--assign-chunks", "3", "--sub-nprobe", "2",
+                                  "--sub-size", "256", "--scan-mode",
+                                  "binned"],
+    # a materialised base re-laid shard-major: store files byte-identical
+    "store-exact": ["--layout", "shard-major"],
     "mips": ["--metric", "mips"],
     "max-nprobes": ["--kind", "blobs", "--max-nprobes", "3"],
 }
+# Recall-curve tolerances of the shard-major variants (recall comes in steps
+# of 1/320 at 32 queries x k=10). The fused assign + relayout writes a
+# chunk's rows in id order where the JAX CLI writes them in admission order
+# (ROADMAP C7), and the router is trained on a sample of the store drawn by
+# row position: the two CLIs train their routers on other points, so even
+# the exact scan's curves differ. These are the smallest tolerances the
+# exact variants meet (measured 0.015625 and 0.021875); the binned scan,
+# which keeps two rows a 128-row bin, is held to 0.03.
+SHARD_MAJOR_CURVE_ATOL = {"store-exact": 0.016, "virtual-store-subs": 0.022,
+                          "virtual-store-subs-binned": 0.03}
 
 
 @pytest.mark.parametrize("variant", sorted(SCALE_VARIANTS))
@@ -116,7 +136,8 @@ def test_scale_bench_matches_jax_cli(tmp_path, variant):
         # the router is trained on another sample of the same points
         skip += (8,)
         np.testing.assert_allclose([float(r[8]) for r in trows],
-                                   [float(r[8]) for r in jrows], atol=0.03)
+                                   [float(r[8]) for r in jrows],
+                                   rtol=0, atol=SHARD_MAJOR_CURVE_ATOL[variant])
         assert tsum["balance"] == jsum["balance"]
     else:
         for key in SUMMARY_KEYS - {"curve_pass_s", "total_s", "gb_streamed"}:

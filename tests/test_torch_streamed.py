@@ -243,6 +243,43 @@ def test_fused_store_row_order_keeps_binned_recall(tmp_path):
     assert last["j"] <= last["t"] - 0.01, last
 
 
+@pytest.mark.parametrize("sub_size", [2048, 512])
+def test_regrouped_store_keeps_binned_recall(tmp_path, sub_size):
+    """A sub-cluster-major store holds each sub-cluster's rows side by side,
+    so near neighbours share 128-row bins again (the fault of the test
+    above, made by the regrouping). The binned scan of such a store scans
+    its blocks in a fixed row permutation: every shard probed, no pruning,
+    the last prefix stays >= 0.999 (0.955 at sub-size 2048 and 0.821 at 512
+    without the permutation), and the exact scan at 1.0. A permuted block
+    still loses a neighbour where three of a query's ten share a bin, as an
+    id-ordered one does: ~120 / 157^2 of the queries at 157 bins a shard."""
+    n, d, s, k = 40_000, 48, 2, 10
+    base = VirtualPoints("hard2", n, d, 9, dtype="u8", chunk_rows=1 << 15)
+    q = generate_queries("hard2", 128, d, 9, dtype="u8")
+    from gpann_tpu_torch.cluster.kmeans import kmeans
+    from gpann_tpu_torch.core.distances import streaming_topk_neighbors
+
+    cents, _ = kmeans(np.asarray(base[:8000], np.float32), k=s, seed=9,
+                      device="cpu")
+    labels = np.arange(s)
+    assert trel.capacity_assign_to_store(base, cents, labels, s, str(tmp_path),
+                                         eps=0.05, chunk_rows=1 << 15,
+                                         device="cpu")
+    store = trel.ShardMajorStore(str(tmp_path))
+    gt_d, _ = streaming_topk_neighbors(q, store.concat_view(), k, device="cpu")
+    StreamedShardEngine(None, None, cents, labels, store=store, device="cpu"
+                        ).build_subclusters_store(target_sub_size=sub_size)
+    last = {}
+    for mode in ("binned", "exact"):
+        engine = StreamedShardEngine(
+            None, None, cents, labels, scan_mode=mode,
+            store=trel.ShardMajorStore(str(tmp_path)), device="cpu")
+        assert len(engine.sub_centroids[0]) >= n // s // sub_size
+        last[mode] = engine.recall_curve(q, k, gt_d[:, -1])[0][-1]
+    assert last["binned"] >= 0.999, last
+    assert last["exact"] == 1.0, last
+
+
 # -- routing -------------------------------------------------------------------
 
 @pytest.mark.parametrize("voting_impl", ["exact", "rescore"])
