@@ -11,7 +11,7 @@ batch by kernel (``torch.profiler``) and prints no result lines. The first
 builds the bin-top-2 kernel from ``gpann_tpu_torch/csrc/``, holds it
 against its plain PyTorch version (moderate shapes, shapes its tiling can
 get wrong, ties, one tile against fp64 beside a CPU rehearsal of its
-split-TF32 arithmetic; two launches must be bit-equal), then drives seven
+split-TF32 arithmetic; two launches must be bit-equal), then drives eight
 paths at the bench configuration (8M x 96 points regenerated from seed 555,
 4096 queries, k=10, 32 shards, eps 0.05):
 
@@ -32,7 +32,8 @@ paths at the bench configuration (8M x 96 points regenerated from seed 555,
    (``cli.partition``), ``cli.query_attribution`` (fresh ground truth through
    kernel B2, router budget 40k, the 9-step in-shard sweep, the 19-column
    CSV and its Pareto front), ``cli.oracle_recall`` and
-   ``cli.small_scale_queries`` on the shipped partition. The inputs are
+   ``cli.small_scale_queries`` on the shipped partition's part of a 1M
+   prefix. The inputs are
    written as ``.fbin`` into a temporary directory that is removed at the
    end.
 4. Bench: ``cli.bench --config hard`` on the non-separable ``hard`` mixture
@@ -63,6 +64,16 @@ paths at the bench configuration (8M x 96 points regenerated from seed 555,
    B2 against its plain version at the routing shape; then
    ``cli.distributed_bench`` in 2 ranks through ``torch.distributed.run``
    on a 1M-point prefix.
+8. MIPS (run right after path 5, on path 4's hard base and queries): A, the
+   pipeline of ``exp_scripts/mips_overlap_8m.py`` through the port's
+   modules, ground truth under MIPS through kernel B2 (held against a plain
+   fp32 top-k), a subsample-GP partition (250k points), a k-means-tree
+   router (1M points, budget 40k), a centroid-ranked overlap (0.2, cheapest
+   first under a capacity), and the recall curves of two engines, ``gp`` on
+   the partition and ``gp_overlap`` on the cover (kernel B1, the merge's id
+   dedup), each with the binned and then the exact scan; B,
+   ``cli.scale_bench --metric mips`` on a 2M-point virtual ``hard`` base
+   (shard-major store, the streamed engine, kernel B2 at each shard).
 
 Kernel times are CUDA-event times; build stages are wall seconds with a
 CUDA synchronisation at each stage end. Any failed check raises, so the exit
@@ -72,10 +83,11 @@ The last line is ``{"ok": true, "device": {...}}``; two lines before it one
 JSON object lists each kernel entry point with its launches, its error
 against the plain version, its times, its bound (``scan_bounds``) and the
 TFLOP/s it reached: first at the shapes of path 1 with the launches of
-paths 1-6, then at the shapes paths 5, 4 and 7 give it with those paths'
+paths 1-6, then at the shapes paths 5, 4, 7 and 8 give it with those paths'
 launches.
 """
 
+import glob
 import json
 import logging
 import os
@@ -133,6 +145,7 @@ QA_METHODS = ("OGP", "OKM")
 QA_ORACLE_SLACK = 0.002       # CSV recall <= a route's oracle curve + this
 QA_ORACLE_PROBES = (1, 2, 4, 32)
 QA_SMALL_BRUTE_MIN = 0.999    # small-scale BruteForce recall at 32 probes
+QA_SMALL_PREFIX = 1_000_000   # small-scale queries on this prefix (for time)
 QA_FREE_BYTES = 12 << 30      # scratch space the phase needs
 # bench, hard mixture (exp_scripts/hard_serve_bench.py)
 HARD_ARTIFACT = os.path.join(REPO, "exp_artifacts", "hardserve_8m_cache.npz")
@@ -168,6 +181,29 @@ MR_LLOYD_K = 32               # ... into this many clusters
 MR_BENCH_N = 1_000_000        # cli.distributed_bench on this prefix ...
 MR_BENCH_NQ = 1024            # ... and this many queries (cut from 4096)
 MR_TIMEOUT = 300              # seconds one spawn of ranks may take
+# the MIPS configuration (exp_scripts/mips_overlap_8m.py) on path 4's hard
+# base: GP on a subsample, a k-means-tree router, centroid-ranked overlap
+MIPS_SUBSAMPLE = 250_000      # GP graph on this many points (the script: 1M)
+MIPS_AGGREGATES = 4096
+MIPS_ROUTER_SAMPLE = 1_000_000  # router trained on this many points (the
+                              # script: 2M; cut for time) ...
+MIPS_ROUTER_SEED = SEED + 1   # ... drawn with this seed
+MIPS_ROUTER_CENTROIDS = 32
+MIPS_ROUTER_BUDGET = 40_000
+MIPS_OVERLAP = 0.2
+MIPS_KEEP = 5                 # foreign-cluster candidates a point
+MIPS_VOTING_T = 60
+MIPS_TARGET = 0.95            # the script's recall target
+MIPS_GT_CHECK_NQ = 256        # GT held against a plain fp32 top-k
+MIPS_EXACT_LAST_MIN = 0.9999  # exact scan, every shard probed
+MIPS_ORACLE_SLACK = 1e-3      # routed curve <= oracle curve + this
+MIPS_ARM_SLACK = 0.002        # overlap arm >= gp arm - this
+MIPS_BINNED_SLACK = 0.005     # binned curve within this of the exact one
+# the streamed path under MIPS: cli.scale_bench, cut from the reference's
+# 16M GP run (exp_outputs/scale16m_mips_gp.csv) to 2M and bkm for time
+MIPS_SCALE_N = 2_000_000
+MIPS_SCALE_NQ = 1024
+MIPS_SCALE_LAST_MIN = 0.995
 SOURCE = "gpann_tpu_torch/csrc/bintop2.cu"
 REPLACES = {
     "binmin_scan": "gpann_tpu/search/pallas_scan.py:39",      # _bintop2_kernel
@@ -463,7 +499,8 @@ def measure_kernel(name: str, shape: str, kernel, plain, product,
 
 
 def measure_base_scan(name: str, what: str, qs, base, tag: str,
-                      id_rows=None, reps: int = 10, atol: float = ATOL) -> dict:
+                      id_rows=None, reps: int = 10, atol: float = ATOL,
+                      metric: str = "l2") -> dict:
     """Kernel B2 (``binmin_scan``) of ``qs`` over all rows of ``base``
     against its plain version; the entry's numbers (:func:`measure_kernel`)."""
     from gpann_tpu_torch.search import bin_scan as bs
@@ -480,13 +517,13 @@ def measure_base_scan(name: str, what: str, qs, base, tag: str,
 
     return measure_kernel(
         name, f"{m} x {n} x {d}{what}",
-        lambda: bs.binmin_scan(qs, base, n),
-        lambda: bs.binmin_scan_plain(qs, base, n), product,
+        lambda: bs.binmin_scan(qs, base, n, metric),
+        lambda: bs.binmin_scan_plain(qs, base, n, metric), product,
         scan_bounds(d, m, -(-n // 128) * 128,
                     torch.zeros(1, dtype=torch.int64, device=dev),
                     torch.full((1,), n, device=dev),
                     torch.full((1,), m, device=dev)),
-        lambda got, want: compare_bins(got, want, qs, base, zeros, "l2",
+        lambda got, want: compare_bins(got, want, qs, base, zeros, metric,
                                        id_rows=id_rows, atol=atol),
         reps=reps, tag=tag)
 
@@ -501,7 +538,7 @@ def measure_serve_scan(name: str, engine, q_dev, nprobes: int, voting_t: int,
     qrows, row_off, sizes, live_q = engine.scan_inputs(
         q_dev, nprobes, voting_t=voting_t, query_block=QUERY_BLOCK)
     cap, base = engine.capacity, engine.shard_points
-    scan = (qrows, base, row_off, sizes, QUERY_BLOCK, cap)
+    scan = (qrows, base, row_off, sizes, QUERY_BLOCK, cap, engine.metric)
     windows = [(b, off, size) for b, (off, size)
                in enumerate(zip(row_off.tolist(), sizes.tolist())) if size > 0]
     mm_out = torch.empty((QUERY_BLOCK, cap), device=q_dev.device)
@@ -523,7 +560,7 @@ def measure_serve_scan(name: str, engine, q_dev, nprobes: int, voting_t: int,
         scan_bounds(base.shape[1], QUERY_BLOCK, cap, row_off, sizes, live_q),
         lambda got, want: compare_bins(
             got, want, qrows, base, row_off.repeat_interleave(QUERY_BLOCK),
-            "l2", atol=atol),
+            engine.metric, atol=atol),
         reps=10, tag=tag)
 
 
@@ -759,8 +796,6 @@ def query_attribution(dev, pts: np.ndarray, q: np.ndarray, shipped: dict,
     write_points(base_f, pts)
     write_points(query_f, q)
     assign = shipped["assign"]
-    gp_f = path(f"bench.k={SHARDS}.GP")
-    write_clusters(gp_f, partition_to_clusters(assign, SHARDS))
     stage("write inputs", t0)
 
     # ---- 2. overlapping cover of the shipped GP partition ----
@@ -879,9 +914,18 @@ def query_attribution(dev, pts: np.ndarray, q: np.ndarray, shipped: dict,
     # ---- 6. small-scale queries on the shipped GP partition ----
     t0 = time.perf_counter()
     ss_csv = path("small_scale.csv")
-    assert small_scale_queries.main([base_f, query_f, gt_f, str(K), gp_f,
-                                     ss_csv, "GP"] + dev_arg) == 0
+    # on a prefix of the base and the shipped partition's part of it; the CLI
+    # computes the prefix's ground truth (kernel B2), as no file holds it
+    ss_base_f, ss_gp_f = path("small_base.fbin"), path("small.GP")
+    write_points(ss_base_f, pts[:QA_SMALL_PREFIX])
+    write_clusters(ss_gp_f, [c[c < QA_SMALL_PREFIX] for c in
+                             partition_to_clusters(assign, SHARDS)])
+    kernels.reset_launches()
+    assert small_scale_queries.main([ss_base_f, query_f, path("small_gt.bin"),
+                                     str(K), ss_gp_f, ss_csv, "GP"]
+                                    + dev_arg) == 0
     stage("small scale CLI", t0)
+    launches["binmin_scan"] += kernels.LAUNCHES["binmin_scan"]
     curves = {}
     with open(ss_csv) as f:
         f.readline()
@@ -1180,56 +1224,69 @@ def streamed_phase(dev, hard: dict, hard_out: dict, shipped_hard: dict,
     return launches, entry
 
 
-def scale_phase(dev, cache_dir: str, tag: str) -> dict:
-    """``cli.scale_bench`` as a user runs it, twice (module docstring, path
-    6). Returns the kernel launches of this path."""
+def run_scale_bench(argv, cache_dir: str, out_csv: str, shards: int,
+                    what: str, tag: str):
+    """One ``cli.scale_bench.main(argv)`` call with its caches in
+    ``cache_dir`` and its CSV at ``out_csv``: logs its JSON line, stage
+    seconds and curve, checks the row count, the balance and a
+    non-decreasing curve. Returns (summary, curve, seconds)."""
     import contextlib
     import io
 
-    from gpann_tpu_torch import kernels
     from gpann_tpu_torch.cli import scale_bench
+
+    prev = os.environ.get("GPANN_CACHE_DIR")
+    os.environ["GPANN_CACHE_DIR"] = cache_dir
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            assert scale_bench.main(argv + ["--out", out_csv]) == 0
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            del os.environ["GPANN_CACHE_DIR"]
+        else:
+            os.environ["GPANN_CACHE_DIR"] = prev
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(out_csv) as f:
+        header = f.readline().strip().split(",")
+        rows = [dict(zip(header, line.strip().split(","))) for line in f]
+    log(f"scale_bench {what}: {secs:.3f} s {tag}")
+    log(json.dumps(summary))
+    log("scale_bench stage seconds: " + ", ".join(
+        f"{k} {rows[0][k]}" for k in
+        ("partition_s", "gt_s", "router_s", "curve_pass_s"))
+        + f"; {rows[0]['gb_streamed']} GB streamed")
+    curve = [float(r["recall"]) for r in rows]
+    log("scale_bench curve: " + " ".join(
+        f"{p + 1}:{r:.4f}" for p, r in enumerate(curve)
+        if p < 8 or p + 1 == len(curve)))
+    assert len(rows) == shards, len(rows)
+    assert summary["balance"] <= SCALE_BALANCE_MAX, summary
+    _assert_monotone(curve, f"scale_bench {what}")
+    return summary, curve, secs
+
+
+def scale_phase(dev, cache_dir: str, tag: str) -> dict:
+    """``cli.scale_bench`` as a user runs it, twice (module docstring, path
+    6). Returns the kernel launches of this path."""
+    from gpann_tpu_torch import kernels
 
     argv = ["--kind", "hard2", "--dtype", "u8", "--base", "virtual",
             "--layout", "shard-major", "--method", "bkm", "--shards",
             str(SCALE_SHARDS), "--nq", str(SCALE_NQ), "--n", str(SCALE_N),
             "--d", str(D), "--device", str(dev)]
     kernels.reset_launches()
-    prev = os.environ.get("GPANN_CACHE_DIR")
-    os.environ["GPANN_CACHE_DIR"] = cache_dir
-    try:
-        runs = []
-        for name, sub in (("pruned", SCALE_SUB_NPROBE), ("whole", 0)):
-            out_csv = os.path.join(cache_dir, f"scale_{name}.csv")
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                assert scale_bench.main(argv + ["--sub-nprobe", str(sub),
-                                                "--out", out_csv]) == 0
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            summary = json.loads(buf.getvalue().strip().splitlines()[-1])
-            with open(out_csv) as f:
-                header = f.readline().strip().split(",")
-                rows = [dict(zip(header, line.strip().split(","))) for line in f]
-            log(f"scale_bench --sub-nprobe {sub}: {secs:.3f} s {tag}")
-            log(json.dumps(summary))
-            log("scale_bench stage seconds: " + ", ".join(
-                f"{k} {rows[0][k]}" for k in
-                ("partition_s", "gt_s", "router_s", "curve_pass_s"))
-                + f"; {rows[0]['gb_streamed']} GB streamed")
-            curve = [float(r["recall"]) for r in rows]
-            log("scale_bench curve: " + " ".join(
-                f"{p + 1}:{r:.4f}" for p, r in enumerate(curve)
-                if p < 8 or p + 1 == len(curve)))
-            assert len(rows) == SCALE_SHARDS and summary["n"] == SCALE_N
-            assert summary["balance"] <= SCALE_BALANCE_MAX, summary
-            _assert_monotone(curve, f"scale_bench {name}")
-            runs.append((summary, curve, secs))
-    finally:
-        if prev is None:
-            del os.environ["GPANN_CACHE_DIR"]
-        else:
-            os.environ["GPANN_CACHE_DIR"] = prev
+    runs = []
+    for name, sub in (("pruned", SCALE_SUB_NPROBE), ("whole", 0)):
+        summary, curve, secs = run_scale_bench(
+            argv + ["--sub-nprobe", str(sub)], cache_dir,
+            os.path.join(cache_dir, f"scale_{name}.csv"), SCALE_SHARDS,
+            f"--sub-nprobe {sub}", tag)
+        assert summary["n"] == SCALE_N, summary
+        runs.append((summary, curve, secs))
     (_, _, cold), (whole, curve, warm) = runs
     log(f"scale_bench: cold {cold:.3f} s, on its own caches {warm:.3f} s; last "
         f"prefix without pruning {curve[-1]:.6f} (need >= {SCALE_LAST_PREFIX_MIN})")
@@ -1238,6 +1295,248 @@ def scale_phase(dev, cache_dir: str, tag: str) -> dict:
     log(f"launches on the scale_bench path: {launches}")
     assert launches["binmin_scan"] > 0, launches
     return launches
+
+
+def _probes_at(curve, target: float) -> int:
+    ok = np.nonzero(np.asarray(curve) >= target)[0]
+    return int(ok[0] + 1) if len(ok) else len(curve)
+
+
+def mips_phase(dev, hard: dict, cache_dir: str, tag: str) -> list:
+    """The MIPS configuration (module docstring, path 8) on path 4's hard
+    base and queries (``hard["points"]``, ``hard["queries"]``): part A as
+    ``exp_scripts/mips_overlap_8m.py`` runs it, part B ``cli.scale_bench
+    --metric mips``. Returns the ``kernels`` entries of the kernel launches
+    of this path, each held against its plain version at the shape of the
+    launches it counts: B2 at the ground truth, B1 at each arm's binned
+    curve, B2 at part B's streamed shards."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.core.distances import chunked_topk_neighbors
+    from gpann_tpu_torch.core.partition import (clusters_to_cover,
+                                                partition_to_clusters)
+    from gpann_tpu_torch.eval.recall import (compute_ground_truth,
+                                             kth_neighbor_distance,
+                                             oracle_recall)
+    from gpann_tpu_torch.gp.overlap import (apply_extra_assignments,
+                                            centroid_overlap_streamed)
+    from gpann_tpu_torch.gp.scale import subsample_gp_partition
+    from gpann_tpu_torch.route import KMeansTreeRouter, KMeansTreeRouterOptions
+    from gpann_tpu_torch.search.relayout import ShardMajorStore
+    from gpann_tpu_torch.search.serve import ServingEngine
+
+    t_phase = time.perf_counter()
+    pts, q = hard["points"], hard["queries"]
+    n = len(pts)
+    secs = {}
+
+    def stage(name: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"mips: {name} {secs[name]:.3f} s {tag}")
+
+    def launched(what: str) -> dict:
+        """The launches since the last call (counts reset to 0 after)."""
+        torch.cuda.synchronize()
+        out = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        log(f"mips launches, {what}: {out}")
+        return out
+
+    entries = []
+    kernels.reset_launches()
+    # ---- A1. ground truth under MIPS through kernel B2 ----
+    t0 = time.perf_counter()
+    gt_ids, gt_dists = compute_ground_truth(pts, q, K, metric="mips",
+                                            device=dev)
+    stage("ground truth", t0)
+    # one launch: all queries over the whole base
+    gt_launches = launched("ground truth")
+    assert gt_launches == {"binmin_scan": 1, "bintop2_blocks": 0}
+    assert gt_ids.shape == (len(q), K) and np.isfinite(gt_dists).all()
+    kth = kth_neighbor_distance(gt_dists, K)
+    # held against a plain fp32 top-k (TF32 off) on a slice of the queries;
+    # the GT's distances are its ids' scores, so ids are checked through them
+    assert not torch.backends.cuda.matmul.allow_tf32
+    m = MIPS_GT_CHECK_NQ
+    t0 = time.perf_counter()
+    plain_d, _ = chunked_topk_neighbors(q[:m], pts, K, metric="mips",
+                                        device=dev)
+    stage("ground truth check", t0)
+    np.testing.assert_allclose(gt_dists[:m], plain_d, rtol=GT_KTH_RTOL)
+    log(f"mips GT: {m} queries' 10 scores (kth {kth[:m].min():.3f}.."
+        f"{kth[:m].max():.3f}) equal a plain fp32 top-10 within rtol "
+        f"{GT_KTH_RTOL} ok")
+
+    # ---- A2. GP partition on a subsample, stream-assigned ----
+    t0 = time.perf_counter()
+    assign, (aggs, agg_lbl, _, _) = subsample_gp_partition(
+        pts, k=SHARDS, eps=EPS, seed=SEED, metric="mips",
+        num_subsample=MIPS_SUBSAMPLE, num_aggregate=MIPS_AGGREGATES,
+        return_artifacts=True, device=dev)
+    stage("partition", t0)
+    sizes = np.bincount(assign, minlength=SHARDS)
+    balance = float(sizes.max() / np.ceil(n / SHARDS))
+    log(f"mips partition: {SHARDS} parts, {sizes.min()}..{sizes.max()} rows, "
+        f"balance {balance:.4f} (need <= {1 + EPS})")
+    assert len(sizes) == SHARDS and balance <= 1 + EPS
+
+    # ---- A3. k-means-tree router on a subsample ----
+    t0 = time.perf_counter()
+    sub = np.sort(np.random.default_rng(MIPS_ROUTER_SEED).choice(
+        n, size=min(MIPS_ROUTER_SAMPLE, n // 2), replace=False))
+    rp, rl = KMeansTreeRouter(metric="mips", device=dev).train(
+        np.asarray(pts[sub], np.float32),
+        partition_to_clusters(assign[sub], SHARDS),
+        KMeansTreeRouterOptions(num_centroids=MIPS_ROUTER_CENTROIDS,
+                                budget=MIPS_ROUTER_BUDGET), seed=SEED
+    ).extract_points()
+    stage("router", t0)
+    log(f"mips router: {len(rp)} routing points from {len(sub)}")
+
+    # ---- A4. centroid-ranked overlap, cheapest first under a capacity ----
+    t0 = time.perf_counter()
+    cap2 = int((1.0 + EPS) * (1.0 + MIPS_OVERLAP) * n / SHARDS)
+    extra = int(MIPS_OVERLAP * n)
+    ep, ec = centroid_overlap_streamed(
+        pts, assign, aggs, agg_lbl, SHARDS, cap2, extra, keep=MIPS_KEEP,
+        metric="mips", device=dev)
+    clusters = partition_to_clusters(assign, SHARDS)
+    cover = apply_extra_assignments(clusters, ep, ec)
+    stage("overlap", t0)
+    largest = max(len(c) for c in cover)
+    log(f"mips overlap: {len(ep)} extra assignments (need {extra}), largest "
+        f"cover shard {largest} (capacity {cap2})")
+    assert len(ep) == extra and largest <= cap2
+    # every launch of the path is counted by an entry below
+    assert not any(launched("partition, router, overlap").values())
+
+    # ---- A5. both arms served on one router, binned then exact ----
+    q_dev = torch.from_numpy(q).to(dev)
+    log("mips serving: voting_impl exact (the script's \"approx\" is exact "
+        "torch.topk in the port)")
+    oracle = {"gp": oracle_recall(gt_ids, partition=assign, num_shards=SHARDS),
+              "gp_overlap": oracle_recall(
+                  gt_ids, cover=clusters_to_cover(cover, n=n),
+                  num_shards=SHARDS)}
+    curves, summary, b1 = {}, {}, {}
+    for arm, cl in (("gp", clusters), ("gp_overlap", cover)):
+        t0 = time.perf_counter()
+        engine = ServingEngine(pts, cl, rp, rl, metric="mips",
+                               scan_mode="binned", voting_impl="exact",
+                               device=dev)
+        stage(f"{arm} engine", t0)
+        # one engine serves both scans: its capacity is a multiple of the
+        # bin either way, so the exact engine's arrays would be the same
+        for scan_mode in ("binned", "exact"):
+            engine.scan_mode = scan_mode
+            t0 = time.perf_counter()
+            curve = engine.recall_curve(q_dev, K, kth, voting_t=MIPS_VOTING_T,
+                                        rule="min_dist",
+                                        query_block=QUERY_BLOCK)
+            stage(f"{arm} {scan_mode} curve", t0)
+            # the binned curve is one launch of B1: every query at every
+            # probe, the shape held below; the exact scan launches nothing
+            counted = launched(f"{arm} {scan_mode} curve")
+            assert counted == {"binmin_scan": 0, "bintop2_blocks":
+                               int(scan_mode == "binned")}, counted
+            curves[arm, scan_mode] = np.asarray(curve, np.float64)
+            log(f"mips {arm} {scan_mode} curve: " + " ".join(
+                f"{p + 1}:{r:.5f}" for p, r in enumerate(curve)))
+            if scan_mode == "exact":
+                continue
+            npb = _probes_at(curve, MIPS_TARGET)
+            summary[arm] = {
+                "probes_at_095": npb,
+                "recall_at_that": round(float(curve[npb - 1]), 4),
+                "scanned_rows_at_095": npb * engine.capacity,
+                "oracle_probes_at_095": _probes_at(oracle[arm], MIPS_TARGET),
+                "curve12": [round(float(r), 4) for r in curve[:12]]}
+            # B1 against its plain version at the curve's shape
+            name = f"bintop2_blocks (MIPS {arm.removeprefix('gp_')} serve)"
+            b1[arm] = _kernel_entry(
+                name, counted["bintop2_blocks"],
+                measure_serve_scan(name, engine, q_dev, SHARDS, MIPS_VOTING_T,
+                                   tag,
+                                   atol=term_atol(q_dev, engine.shard_points)))
+            kernels.reset_launches()  # the comparison's launches do not count
+            torch.cuda.empty_cache()
+        del engine
+        torch.cuda.empty_cache()
+    log("mips summary (the script's JSON): " + json.dumps(
+        {"overlap": MIPS_OVERLAP, "num_extra": int(len(ep)), **summary}))
+    for arm in ("gp", "gp_overlap"):
+        binned, exact = curves[arm, "binned"], curves[arm, "exact"]
+        log(f"mips {arm} oracle curve: " + " ".join(
+            f"{p + 1}:{r:.5f}" for p, r in enumerate(oracle[arm][:12])))
+        gap = float(np.abs(binned - exact).max())
+        over = max(float((c - oracle[arm]).max()) for c in (binned, exact))
+        log(f"mips {arm}: binned - exact within {gap:.5f} (need <= "
+            f"{MIPS_BINNED_SLACK}); exact last prefix {exact[-1]:.5f} (need "
+            f">= {MIPS_EXACT_LAST_MIN}); routed - oracle <= {over:.5f} (need "
+            f"<= {MIPS_ORACLE_SLACK})")
+        _assert_monotone(list(binned), f"mips {arm} binned curve")    # (a)
+        assert exact[-1] >= MIPS_EXACT_LAST_MIN, exact                 # (b)
+        assert over <= MIPS_ORACLE_SLACK, (arm, over)                  # (c)
+        assert gap <= MIPS_BINNED_SLACK, (arm, binned, exact)          # (e)
+    worst = float((curves["gp", "binned"]
+                   - curves["gp_overlap", "binned"]).max())
+    log(f"mips: overlap arm - gp arm >= {-worst:.5f} (need >= "
+        f"-{MIPS_ARM_SLACK})")
+    assert worst <= MIPS_ARM_SLACK                                     # (d)
+    log("mips stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; total {sum(secs.values()):.3f} {tag}")
+
+    # B2 against its plain version at the ground truth's shape
+    base = torch.tensor(pts, device=dev)  # a copy: the points are read-only
+    log(f"mips: kernel vs plain at rtol {RTOL}, atol 1e-6 of the largest "
+        "|q|^2 + |x|^2")
+    name = "binmin_scan (MIPS ground truth)"
+    entries.append(_kernel_entry(
+        name, gt_launches["binmin_scan"],
+        measure_base_scan(name, "", q_dev, base, tag, id_rows=256, reps=3,
+                          atol=term_atol(q_dev, base), metric="mips")))
+    entries += [b1["gp"], b1["gp_overlap"]]
+    kernels.reset_launches()
+    del base, q_dev
+    torch.cuda.empty_cache()
+    log(f"mips part A {time.perf_counter() - t_phase:.3f} s {tag}")
+
+    # ---- B. the streamed path under MIPS: cli.scale_bench ----
+    t0 = time.perf_counter()
+    argv = ["--kind", "hard", "--dtype", "f32", "--metric", "mips",
+            "--base", "virtual", "--layout", "shard-major", "--method", "bkm",
+            "--shards", str(SHARDS), "--nq", str(MIPS_SCALE_NQ), "--n",
+            str(MIPS_SCALE_N), "--d", str(D), "--device", str(dev)]
+    os.makedirs(cache_dir, exist_ok=True)
+    scale, curve, _ = run_scale_bench(
+        argv, cache_dir, os.path.join(cache_dir, "scale_mips.csv"), SHARDS,
+        "--metric mips", tag)
+    # the curve pass probes every shard (min_dist ranks them all), so it
+    # scans each shard once, with every query
+    counted = launched("scale_bench --metric mips")
+    log(f"scale_bench --metric mips: last prefix {curve[-1]:.6f} (need >= "
+        f"{MIPS_SCALE_LAST_MIN})")
+    assert scale["n"] == MIPS_SCALE_N and scale["metric"] == "mips"
+    assert curve[-1] >= MIPS_SCALE_LAST_MIN
+    assert counted == {"binmin_scan": SHARDS, "bintop2_blocks": 0}, counted
+    # B2 against its plain version at the largest shard of the CLI's store,
+    # with the CLI's queries (saved beside its ground truth)
+    (store_dir,) = glob.glob(os.path.join(cache_dir, "*_store"))
+    (gt_path,) = glob.glob(os.path.join(cache_dir, "*_gt.npz"))
+    store = ShardMajorStore(store_dir)
+    b = int(np.argmax(store.sizes))
+    shard = torch.from_numpy(np.array(store.shard_rows(b))).to(dev)
+    qs = torch.from_numpy(np.load(gt_path)["queries"][:MIPS_SCALE_NQ]).to(dev)
+    name = "binmin_scan (MIPS streamed shard)"
+    entries.append(_kernel_entry(
+        name, counted["binmin_scan"],
+        measure_base_scan(name, f", shard {b}, every query", qs, shard, tag,
+                          atol=term_atol(qs, shard), metric="mips")))
+    del shard, qs
+    log(f"mips part B {time.perf_counter() - t0:.3f} s; phase "
+        f"{time.perf_counter() - t_phase:.3f} s {tag}")
+    return entries
 
 
 def analysis_phase(dev, pts: np.ndarray, q: np.ndarray, qa_files: dict,
@@ -1712,9 +2011,16 @@ def main(profile_only: bool = False) -> int:
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
         stream_launches, b2_shard = streamed_phase(
             dev, hard, hard_out, hard_art, os.path.join(scratch, "store"), tag)
-        del hard
-        torch.cuda.empty_cache()
         shutil.rmtree(os.path.join(scratch, "store"))
+        del hard["engine"]
+        torch.cuda.empty_cache()
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+        # ---- MIPS on the hard base: the overlap pipeline, scale_bench ----
+        mips_entries = mips_phase(
+            dev, hard, os.path.join(scratch, "mips"), tag)
+        del hard
+        shutil.rmtree(os.path.join(scratch, "mips"))
         shutil.rmtree(os.path.join(scratch, "cache"))
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -1733,13 +2039,14 @@ def main(profile_only: bool = False) -> int:
 
     # launches: paths 1-6's runs for the two entry points at path 1's
     # shapes; the paths' own for the entries at their shapes (path 7's B2
-    # at the routing shape only)
+    # at the routing shape only; path 8's, each at the shape of the launches
+    # it counts)
     paths = (launches, build_launches, qa_launches, bench_launches,
              stream_launches, scale_launches, analysis_launches)
     print(json.dumps({"kernels": [
         _kernel_entry(name, sum(p[name] for p in paths), stats[name])
         for name in ("binmin_scan", "bintop2_blocks")]
-        + [b2_shard, b1_hard, b2_route]}), flush=True)
+        + [b2_shard, b1_hard, b2_route] + mips_entries}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

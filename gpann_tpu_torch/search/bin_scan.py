@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from gpann_tpu_torch.core.distances import Metric, sq_norms
@@ -39,6 +40,23 @@ from gpann_tpu_torch.search.ivf import _round_up
 BIN = 128  # rows per bin: decides the candidate set, hence recall
 
 _PLAIN_CHUNK_ELEMS = 1 << 28  # distance-matrix elements per plain-version chunk
+
+
+def scan_order(ids) -> np.ndarray:
+    """The order in which rows with these ``ids`` are laid out for the
+    binned scan: ascending id (a stable argsort of ``ids``).
+
+    The scan keeps two rows of each 128-row bin, so near neighbours of one
+    another must not sit side by side in a shard. The producers of a
+    shard's rows hand them over in orders that group such rows: a cover
+    lists its extra points after the members, cheapest first; the fused
+    assignment admits the points closest to their representative first.
+    Id order is independent of both. (A sub-cluster-major store keeps each
+    sub-cluster contiguous on purpose, for pruned reads; its blocks are
+    permuted when they are scanned instead, see
+    ``StreamedShardEngine._scan_block``.)
+    """
+    return np.argsort(np.asarray(ids), kind="stable")
 
 
 def _is_cuda(t: torch.Tensor) -> bool:

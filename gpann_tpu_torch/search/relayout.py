@@ -36,6 +36,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from gpann_tpu_torch.core.distances import Metric
+from gpann_tpu_torch.search.bin_scan import scan_order
 
 _META = "meta.json"
 _CKPT = "ckpt.json"
@@ -265,12 +266,9 @@ class _Writer:
     def append(self, parts: np.ndarray, ids: np.ndarray,
                rows: np.ndarray) -> None:
         """Append ``rows`` to the files of their ``parts``; the rows of one
-        call land in each shard file in ascending id order. (The fused
-        assignment hands them over in admission order, closest to their
-        representative first; written so, the points of one dense cluster
-        sit side by side in the file and share 128-row bins, of which the
-        bin-top-2 scan keeps two candidates each.)"""
-        by_id = np.argsort(ids, kind="stable")
+        call land in each shard file in the binned scan's order
+        (:func:`~gpann_tpu_torch.search.bin_scan.scan_order`)."""
+        by_id = scan_order(ids)
         parts, ids, rows = parts[by_id], ids[by_id], rows[by_id]
         order = np.argsort(parts, kind="stable")
         sp = parts[order]

@@ -31,7 +31,8 @@ import torch
 
 from gpann_tpu_torch.core.distances import Metric, sq_norms
 from gpann_tpu_torch.core.partition import Clusters
-from gpann_tpu_torch.search.bin_scan import BIN, fused_topk, fused_topk_blocks
+from gpann_tpu_torch.search.bin_scan import (BIN, fused_topk,
+                                             fused_topk_blocks, scan_order)
 from gpann_tpu_torch.search.ivf import _exact_rescore, _round_up, _scan_k
 
 _VOTING_IMPLS = ("exact", "approx", "rescore", "binned")
@@ -199,6 +200,7 @@ class ServingEngine:
         ids = np.full(s * cap, -1, np.int32)
         for b, members in enumerate(clusters):
             members = np.asarray(members, np.int64)
+            members = members[scan_order(members)]
             blocks[b * cap : b * cap + len(members)] = points[members]
             ids[b * cap : b * cap + len(members)] = members
         rp = np.asarray(routing_points, np.float32)

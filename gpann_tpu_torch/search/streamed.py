@@ -35,7 +35,7 @@ import torch
 from gpann_tpu_torch.core.distances import (
     Metric, assign_closest, to_device, topk_neighbors)
 from gpann_tpu_torch.core.partition import Clusters
-from gpann_tpu_torch.search.bin_scan import BIN, fused_topk
+from gpann_tpu_torch.search.bin_scan import BIN, fused_topk, scan_order
 from gpann_tpu_torch.search.ivf import _exact_rescore, _scan_k
 from gpann_tpu_torch.search.serve import _probe_rank
 
@@ -133,7 +133,7 @@ class StreamedShardEngine:
         else:
             self.num_shards = len(clusters)
             self.clusters: List[np.ndarray] = [
-                np.asarray(c, np.int64) for c in clusters
+                np.asarray(c, np.int64)[scan_order(c)] for c in clusters
             ]
             self.dim = points.shape[1]
         rp = np.asarray(routing_points, np.float32)
@@ -397,9 +397,12 @@ class StreamedShardEngine:
         two rows each, so the binned scan runs over the block's rows in a
         fixed permutation (seeded by the block's size, made once a size)
         that scatters each sub-cluster over the bins; positions are mapped
-        back through it. The permuting gather is a second f32 copy of the
-        block on the device (budgeted by :meth:`_scan_row_limit`) and falls
-        inside ``device_scan_ms``."""
+        back through it. (The store keeps its sub-cluster order on purpose,
+        for pruned reads, so the id order of
+        :func:`~gpann_tpu_torch.search.bin_scan.scan_order` is not used
+        here.) The permuting gather is a second f32 copy of the block on
+        the device (budgeted by :meth:`_scan_row_limit`) and falls inside
+        ``device_scan_ms``."""
         size = len(rows)
         on_cuda = self.device.type == "cuda"
         t0 = time.perf_counter()

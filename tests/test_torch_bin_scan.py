@@ -198,6 +198,19 @@ def test_wrappers_check_inputs(blocks_case):
         tbs.binmin_scan(q.to("meta"), b.to("meta"), 10)
 
 
+def test_scan_order_puts_rows_in_id_order():
+    """Rows are laid out for the binned scan in ascending id order, whatever
+    order their producer lists them in (a cover: the members, then the
+    extra points cheapest first); rows already in id order stay put."""
+    rng = np.random.default_rng(3)
+    members = np.sort(rng.choice(10_000, 500, replace=False))
+    extras = rng.choice(np.setdiff1d(np.arange(10_000), members), 100,
+                        replace=False)
+    shard = np.concatenate([members, extras])
+    np.testing.assert_array_equal(shard[tbs.scan_order(shard)], np.sort(shard))
+    np.testing.assert_array_equal(tbs.scan_order(members), np.arange(500))
+
+
 # -- the CUDA kernel's arithmetic, rehearsed on the CPU --------------------------
 
 SPLIT_TOL = dict(rtol=1e-4, atol=1e-3)   # the card's kernel-vs-plain tolerance

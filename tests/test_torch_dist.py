@@ -13,8 +13,9 @@ inputs and the same clusters (the JAX package's balanced k-means).
 Tolerances: distances at rtol = atol = 1e-4; ids equal where both sides
 scan in one order (the port's single-process ``IVFIndex``), as sorted sets
 otherwise (the JAX tests' comparison); Lloyd assignments identical,
-centroids within 1e-3 of the single-process round and of JAX's, two calls
-identical; every rank returns the same whole result.
+centroids within 1e-3 of the single-process round and of JAX's (MIPS: within
+1e-5 of a numpy f64 oracle's and of JAX's), two calls identical; every rank
+returns the same whole result.
 """
 
 import numpy as np
@@ -103,6 +104,8 @@ def setup():
     jivf2 = JaxIVF(pts, clusters, mesh=jmesh2)
     import jax.numpy as jnp
     jc, ja = jax_lloyd(jmesh2, k=8)(jnp.asarray(pts), jnp.asarray(cents))
+    jmc, jma = jax_lloyd(jmesh2, k=8, metric="mips")(jnp.asarray(pts),
+                                                       jnp.asarray(cents))
     jax_out = {
         "dp1": JaxIVF(pts, clusters, mesh=jmesh1).search_probed(
             q, probes(64, 8, 3), 10),
@@ -112,6 +115,12 @@ def setup():
         "mb_pad": jserve.serve(q[:50], k=10, nprobes=8, voting_t=8,
                                microbatch=16),
         "lloyd": (np.asarray(jc), np.asarray(ja)),
+        "mips_ivf": JaxIVF(pts, clusters, mesh=jmesh2, metric="mips"
+                           ).search_probed(q, probes(64, 8, 3), 10),
+        "mips_serve": JaxServing(pts, clusters, rp, rl, mesh=jmesh2,
+                                 metric="mips").serve(
+            q, k=10, nprobes=3, voting_t=8, microbatch=16),
+        "mips_lloyd": (np.asarray(jmc), np.asarray(jma)),
         "ragged": JaxIVF(pts, ragged, mesh=jmesh1).search_probed(
             q, probes(64, 8, 8), 10),
         "mp_ivf": JaxIVF(mp["pts"], mp["clusters"], mesh=jmesh1).search_probed(
@@ -241,6 +250,42 @@ def test_sharded_lloyd_round(run, setup):
     single_c, _ = kmeans(pts, centroids=cents, rounds=1, device="cpu")
     np.testing.assert_allclose(c1, single_c, rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(c1, jc, rtol=1e-3, atol=1e-3)
+
+
+def test_mips_search_and_serve(run, setup):
+    """MIPS: the probed search against the single-process ``IVFIndex``
+    (ids equal) and the JAX engine (id sets), the fused serve against the
+    single-process ``ServingEngine`` and the JAX engine (id sets)."""
+    inp, out = setup["inp"], run[1][0]
+    want = IVFIndex(inp["pts"], inp["clusters"], metric="mips", device="cpu"
+                    ).search_probed(inp["q"], probes(64, 8, 3), 10)
+    assert_same(out["mips_ivf"], want)
+    assert_same(out["mips_ivf"], setup["jax"]["mips_ivf"], ids="sets")
+    single = ServingEngine(inp["pts"], inp["clusters"], inp["rp"], inp["rl"],
+                           metric="mips", pad_multiple=128, device="cpu")
+    want = single.serve(inp["q"], k=10, nprobes=3, voting_t=8, query_block=32)
+    assert_same(out["mips_serve"], want, ids="sets")
+    assert_same(out["mips_serve"], setup["jax"]["mips_serve"], ids="sets")
+
+
+def test_sharded_lloyd_round_mips(run, setup):
+    """MIPS Lloyd: assignments identical to JAX's and to a numpy f64 oracle
+    (largest inner product), centroids the plain means (not renormalised)
+    within 1e-5 of the oracle's and of JAX's, two calls identical."""
+    inp, out = setup["inp"], run[1][0]
+    (c1, a1), (c2, a2) = out["mips_lloyd"]
+    np.testing.assert_array_equal(c1, c2)
+    np.testing.assert_array_equal(a1, a2)
+    pts = inp["pts"].astype(np.float64)
+    want_a = (pts @ inp["cents"].astype(np.float64).T).argmax(1)
+    np.testing.assert_array_equal(a1, want_a)
+    jc, ja = setup["jax"]["mips_lloyd"]
+    np.testing.assert_array_equal(a1, ja)
+    want_c = inp["cents"].astype(np.float64)       # empty clusters keep theirs
+    for c in np.unique(want_a):
+        want_c[c] = pts[want_a == c].mean(0)
+    np.testing.assert_allclose(c1, want_c, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c1, jc, rtol=1e-5, atol=1e-5)
 
 
 def test_multiprocess_parity(run, setup):

@@ -59,19 +59,22 @@ def setup():
     return pts, q, assign, clusters, pts[rsub], assign[rsub]
 
 
-def exact_dists(pts, q, ids):
+def exact_dists(pts, q, ids, metric="l2"):
     """Exact f32 distances of each query to its ids (+inf for id -1)."""
     rows = np.asarray(pts[np.maximum(ids, 0)], np.float32)
-    d = ((q[:, None, :] - rows) ** 2).sum(-1)
+    if metric == "mips":
+        d = 1.0 - np.einsum("md,mkd->mk", q, rows)
+    else:
+        d = ((q[:, None, :] - rows) ** 2).sum(-1)
     return np.where(ids >= 0, d, np.inf).astype(np.float32)
 
 
-def assert_same_search(got, want, pts, q):
+def assert_same_search(got, want, pts, q, metric="l2"):
     """Distances within TOL; the port's ids stand for the distances it
     reports (a near-tie may swap two ids, never a distance)."""
     (gd, gi), (wd, wi) = got, want
     np.testing.assert_allclose(gd, wd, **TOL)
-    np.testing.assert_allclose(exact_dists(pts, q, gi), gd, **TOL)
+    np.testing.assert_allclose(exact_dists(pts, q, gi, metric), gd, **TOL)
     assert ((gi >= 0) == np.isfinite(gd)).all()
     assert np.mean(gi == wi) > 0.99
 
@@ -348,6 +351,43 @@ def test_search_rows_layout_matches(setup, scan_mode, max_scan_rows):
         sizes[np.unique(probes)].sum() + probes.size)
     assert stats["bytes_uploaded"] < wstats["bytes_uploaded"]
     assert stats["device_scan_ms"] == 0.0  # CUDA events only
+
+
+@pytest.mark.parametrize("scan_mode", ["exact", "binned"])
+def test_search_rows_layout_matches_mips(setup, scan_mode):
+    """Rows layout under MIPS (1 - q.x, no norms): the port against the
+    JAX engine, whole shards."""
+    pts, q, _, clusters, rp, rl = setup
+    jeng = JaxEngine(pts, clusters, rp, rl, metric="mips",
+                     scan_mode=scan_mode, interpret=True)
+    teng = StreamedShardEngine(pts, clusters, rp, rl, metric="mips",
+                               scan_mode=scan_mode, device="cpu")
+    np.testing.assert_array_equal(teng.probe_order(q, 3, voting_t=30),
+                                  jeng.probe_order(q, 3, voting_t=30))
+    wd, wi, wstats = jeng.search(q, K, nprobes=3, voting_t=30)
+    gd, gi, stats = teng.search(q, K, nprobes=3, voting_t=30)
+    assert_same_search((gd, gi), (wd, wi), pts, q, metric="mips")
+    assert stats["shards_scanned"] == wstats["shards_scanned"]
+
+
+def test_rows_layout_of_a_cover_in_id_order(setup):
+    """A cover lists each shard's members, then its extra points; the port
+    lays every shard's rows out in id order, so the binned scan sees the
+    layout the JAX engine gets from the same cover sorted."""
+    pts, q, assign, clusters, rp, rl = setup
+    rng = np.random.default_rng(9)
+    cover = [np.concatenate([c, rng.choice(np.nonzero(assign != b)[0], 500,
+                                           replace=False)])
+             for b, c in enumerate(clusters)]
+    teng = StreamedShardEngine(pts, cover, rp, rl, scan_mode="binned",
+                               device="cpu")
+    for got, c in zip(teng.clusters, cover):
+        np.testing.assert_array_equal(got, np.sort(c))
+    jeng = JaxEngine(pts, [np.sort(c) for c in cover], rp, rl,
+                     scan_mode="binned", interpret=True)
+    want = jeng.search(q, K, nprobes=3, voting_t=30)[:2]
+    assert_same_search(teng.search(q, K, nprobes=3, voting_t=30)[:2], want,
+                       pts, q)
 
 
 def test_search_binned_sliced_matches():

@@ -51,6 +51,17 @@ def scenarios(inp: dict) -> dict:
     out["lloyd"] = [tuple(t.numpy() for t in step(pts[rows], inp["cents"]))
                     for _ in range(2)]
 
+    # MIPS (1 - q.x): probed search, fused serve, a Lloyd round
+    out["mips_ivf"] = DistributedIVF(pts, clusters, mesh=mesh2, metric="mips",
+                                     **cpu).search_probed(
+        q, probes(len(q), 8, 3), 10)
+    out["mips_serve"] = DistributedServingEngine(
+        pts, clusters, inp["rp"], inp["rl"], mesh=mesh2, metric="mips", **cpu
+    ).serve(q, k=10, nprobes=3, voting_t=8, microbatch=16)
+    step = sharded_lloyd_round(mesh2, k=8, metric="mips", **cpu)
+    out["mips_lloyd"] = [tuple(t.numpy() for t in step(pts[rows], inp["cents"]))
+                         for _ in range(2)]
+
     mp = inp["mp"]
     out["mp_ivf"] = DistributedIVF(mp["pts"], mp["clusters"], mesh=mesh1, **cpu
                                    ).search_probed(mp["q"], probes(32, 8, 3), 10)
