@@ -11,7 +11,7 @@ batch by kernel (``torch.profiler``) and prints no result lines. The first
 builds the bin-top-2 kernel from ``gpann_tpu_torch/csrc/``, holds it
 against its plain PyTorch version (moderate shapes, shapes its tiling can
 get wrong, ties, one tile against fp64 beside a CPU rehearsal of its
-split-TF32 arithmetic; two launches must be bit-equal), then drives eight
+split-TF32 arithmetic; two launches must be bit-equal), then drives nine
 paths at the bench configuration (8M x 96 points regenerated from seed 555,
 4096 queries, k=10, 32 shards, eps 0.05):
 
@@ -49,11 +49,12 @@ paths at the bench configuration (8M x 96 points regenerated from seed 555,
    against the whole one, and on a small batch the pruned pass on a
    sub-cluster-major store against the same store unpruned and against the
    shard-major store.
-6. ``cli.scale_bench`` as a user runs it (``hard2`` bytes from a virtual
-   base, fused assign + relayout, 64 shards), twice (the second call reuses
-   every cache), then ``cli.graph_quality_benchmark``,
+6. ``cli.scale_bench`` as a user runs it (16M x 96 ``hard2`` bytes from a
+   virtual base, balanced k-means, fused assign + relayout, 64 shards, 1024
+   queries), pruned to 4 of each shard's 8192-row sub-clusters, then on its
+   own caches without pruning; then ``cli.graph_quality_benchmark``,
    ``cli.analyze_approximation_losses`` and ``cli.extract_recall`` once
-   each.
+   each (after path 9).
 7. Multi-rank: the engines of ``gpann_tpu_torch.dist`` on path 1's data and
    artifacts in 2 ranks (dp 1 x shard 2), then 4 (dp 2 x shard 2, routing
    through kernel B2), spawned with a timeout, sharing the card and
@@ -74,6 +75,17 @@ paths at the bench configuration (8M x 96 points regenerated from seed 555,
    dedup), each with the binned and then the exact scan; B,
    ``cli.scale_bench --metric mips`` on a 2M-point virtual ``hard`` base
    (shard-major store, the streamed engine, kernel B2 at each shard).
+9. GP at scale (run right after path 6, in its cache directory: the same
+   base, ground truth and queries): ``cli.scale_bench --method gp``, the
+   configuration of the JAX package's large runs (``exp_outputs/
+   scale64m_gp.csv``) at 16M, with a 500k-point GP subsample and 4096
+   aggregates; (a) binned, (b) the same store scanned exact, (c) the
+   small-batch pruning runs (64 queries, 8 probes, 8192-row sub-clusters,
+   whole shards, then the top 4 and top 2 of them). The store holds every
+   id once under the capacity, the binned curve lies within 0.002 of the
+   exact one, the streamed bytes fall with the sub-clusters read, and the
+   probes at recall 0.95 are logged beside path 6's balanced k-means. The
+   kNN graph's top-k is timed beside a stable sort first.
 
 Kernel times are CUDA-event times; build stages are wall seconds with a
 CUDA synchronisation at each stage end. Any failed check raises, so the exit
@@ -83,8 +95,8 @@ The last line is ``{"ok": true, "device": {...}}``; two lines before it one
 JSON object lists each kernel entry point with its launches, its error
 against the plain version, its times, its bound (``scan_bounds``) and the
 TFLOP/s it reached: first at the shapes of path 1 with the launches of
-paths 1-6, then at the shapes paths 5, 4, 7 and 8 give it with those paths'
-launches.
+paths 1-6, then at the shapes paths 5, 4, 7, 8 and 9 give it with those
+paths' launches.
 """
 
 import glob
@@ -121,7 +133,7 @@ PEAK_SPLIT = PEAK_TF32 / 3
 RECALL_SLACK = 0.002
 # cold build at the bench's settings (bench.py:49-53,189-241)
 EPS = 0.05
-BUILD_SUBSAMPLE = 1_000_000   # GP graph on this many points
+BUILD_SUBSAMPLE = 1_000_000   # GP graph on this many points (bench.py:49-53)
 BUILD_AGGREGATES = 4096
 GRAPH_DEGREE = 10
 ROUTER_SUBSAMPLE = 2_000_000  # router trained on this many points ...
@@ -166,8 +178,20 @@ SCALE_N = 16_000_000
 SCALE_SHARDS = 64
 SCALE_NQ = 1024
 SCALE_SUB_NPROBE = 4
+SCALE_SUB_SIZE = 8192         # rows per sub-cluster (the CLI's default: 65,536)
 SCALE_BALANCE_MAX = 1.05
 SCALE_LAST_PREFIX_MIN = 0.999  # all 64 probes, no pruning
+SCALE_TARGET = 0.95           # probes at this recall, GP against bkm
+# path 9: cli.scale_bench --method gp on path 6's base, ground truth and
+# queries; the JAX CLI's 2M-point GP subsample cut for the script's time
+SCALE_GP_SUBSAMPLE = 500_000
+SCALE_GP_AGGREGATES = 4096
+SCALE_GP_BINNED_SLACK = 0.002  # binned curve within this of the exact one
+# the small-batch pruning runs (README.md:443-458): 64 queries, 8 probes,
+# top-t sub-clusters for t = 0 (whole shards), 4, 2
+SCALE_SMALL_NQ = 64
+SCALE_SMALL_NPROBES = 8
+SCALE_SMALL_SUB = (0, 4, 2)
 # one configuration of the graph-quality grid (the full grid is 125)
 GQ_GRID = dict(REPS_GRID=(3,), FANOUT_GRID=(3,), CLUSTER_SIZE_GRID=(1000,))
 # multi-rank phase: (ranks, dp, voting_impl); the ranks share the card and
@@ -1224,12 +1248,14 @@ def streamed_phase(dev, hard: dict, hard_out: dict, shipped_hard: dict,
     return launches, entry
 
 
-def run_scale_bench(argv, cache_dir: str, out_csv: str, shards: int,
+def run_scale_bench(argv, cache_dir: str, out_csv: str, curve_len: int,
                     what: str, tag: str):
     """One ``cli.scale_bench.main(argv)`` call with its caches in
     ``cache_dir`` and its CSV at ``out_csv``: logs its JSON line, stage
-    seconds and curve, checks the row count, the balance and a
-    non-decreasing curve. Returns (summary, curve, seconds)."""
+    seconds and curve, checks the row count (``curve_len`` probe prefixes),
+    the balance and a non-decreasing curve. Returns (summary, curve,
+    seconds, the CSV's first row as a dict: its stage seconds and its
+    streamed GB to 0.01)."""
     import contextlib
     import io
 
@@ -1263,38 +1289,249 @@ def run_scale_bench(argv, cache_dir: str, out_csv: str, shards: int,
     log("scale_bench curve: " + " ".join(
         f"{p + 1}:{r:.4f}" for p, r in enumerate(curve)
         if p < 8 or p + 1 == len(curve)))
-    assert len(rows) == shards, len(rows)
+    assert len(rows) == curve_len, len(rows)
     assert summary["balance"] <= SCALE_BALANCE_MAX, summary
     _assert_monotone(curve, f"scale_bench {what}")
-    return summary, curve, secs
+    return summary, curve, secs, rows[0]
 
 
-def scale_phase(dev, cache_dir: str, tag: str) -> dict:
-    """``cli.scale_bench`` as a user runs it, twice (module docstring, path
-    6). Returns the kernel launches of this path."""
-    from gpann_tpu_torch import kernels
-
-    argv = ["--kind", "hard2", "--dtype", "u8", "--base", "virtual",
-            "--layout", "shard-major", "--method", "bkm", "--shards",
+def scale_argv(dev, method: str) -> list:
+    """Paths 6 and 9's ``cli.scale_bench`` arguments: a virtual 16M x 96 u8
+    ``hard2`` base, fused assign + relayout into 64 shards, 1024 queries."""
+    return ["--kind", "hard2", "--dtype", "u8", "--base", "virtual",
+            "--layout", "shard-major", "--method", method, "--shards",
             str(SCALE_SHARDS), "--nq", str(SCALE_NQ), "--n", str(SCALE_N),
             "--d", str(D), "--device", str(dev)]
+
+
+def scale_phase(dev, cache_dir: str, tag: str):
+    """``cli.scale_bench`` as a user runs it, twice (module docstring, path
+    6). Returns the kernel launches of this path and the curve without
+    pruning."""
+    from gpann_tpu_torch import kernels
+
+    argv = scale_argv(dev, "bkm") + ["--sub-size", str(SCALE_SUB_SIZE)]
     kernels.reset_launches()
     runs = []
     for name, sub in (("pruned", SCALE_SUB_NPROBE), ("whole", 0)):
-        summary, curve, secs = run_scale_bench(
+        summary, curve, secs, row = run_scale_bench(
             argv + ["--sub-nprobe", str(sub)], cache_dir,
             os.path.join(cache_dir, f"scale_{name}.csv"), SCALE_SHARDS,
             f"--sub-nprobe {sub}", tag)
         assert summary["n"] == SCALE_N, summary
-        runs.append((summary, curve, secs))
-    (_, _, cold), (whole, curve, warm) = runs
+        runs.append((summary, curve, secs, float(row["gb_streamed"])))
+    (_, pruned, cold, gb_pruned), (whole, curve, warm, gb_whole) = runs
     log(f"scale_bench: cold {cold:.3f} s, on its own caches {warm:.3f} s; last "
         f"prefix without pruning {curve[-1]:.6f} (need >= {SCALE_LAST_PREFIX_MIN})")
+    log(f"scale_bench --sub-nprobe {SCALE_SUB_NPROBE} --sub-size "
+        f"{SCALE_SUB_SIZE}: {gb_pruned:.2f} GB streamed against {gb_whole:.2f} "
+        f"whole, last prefix {pruned[-1]:.6f} against {curve[-1]:.6f}")
     assert curve[-1] >= SCALE_LAST_PREFIX_MIN and whole["sub_nprobe"] == 0
     launches = dict(kernels.LAUNCHES)
     log(f"launches on the scale_bench path: {launches}")
     assert launches["binmin_scan"] > 0, launches
-    return launches
+    return launches, curve
+
+
+def check_gp_store(store, n: int, shards: int) -> None:
+    """The fused GP store holds every id of ``range(n)`` exactly once, no
+    shard above the capacity of ``relayout.py::capacity_assign_to_store``;
+    logs the rows of each shard's retry tail (its main-pass rows are in
+    ascending id order, the retry rounds' rows follow)."""
+    cap = int((1.0 + EPS) * -(-n // shards))
+    assert store.n == n and store.num_shards == shards, (store.n, n)
+    assert int(store.sizes.max()) <= cap, (int(store.sizes.max()), cap)
+    tails, ids = [], []
+    for b in range(shards):
+        sid = np.asarray(store.shard_ids(b)).astype(np.int64)
+        drop = np.nonzero(np.diff(sid) < 0)[0]
+        tails.append(len(sid) - int(drop[0]) - 1 if len(drop) else 0)
+        ids.append(sid)
+    ids = np.concatenate(ids)
+    assert len(ids) == n and ids.min() >= 0 and ids.max() < n
+    assert (np.bincount(ids, minlength=n) == 1).all(), "an id is not once"
+    tails = np.asarray(tails)
+    log(f"gp store: shards {int(store.sizes.min())}..{int(store.sizes.max())} "
+        f"rows (cap {cap}); every id of range({n}) once; retry tails "
+        f"{int(tails.sum())} rows in {int((tails > 0).sum())} shards, "
+        f"largest {int(tails.max())}")
+
+
+def time_topk_choice(dev, tag: str) -> None:
+    """The kNN graph build's top-k (``topk_smallest``: equal values in
+    ascending position, C12) against a stable sort cut to its first k, at
+    the build's two shapes (a batch of 8192-row buckets, k = the degree; a
+    step of the leader match, 1024 leaders, fanout 3) on integer distances
+    with many ties: the two must agree; both times are logged."""
+    from gpann_tpu_torch.core.distances import topk_smallest
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for what, shape, k in (("bucket crunch", (4, 8192, 8192), GRAPH_DEGREE),
+                           ("leader match", (1 << 16, 1024), 3)):
+        x = torch.randint(0, 4096, shape, device=dev, generator=gen).float()
+
+        def by_sort():
+            v, i = torch.sort(x, dim=-1, stable=True)
+            return v[..., :k], i[..., :k]
+
+        (sv, si), (tv, ti) = by_sort(), topk_smallest(x, k)
+        assert torch.equal(sv, tv) and torch.equal(si, ti), what
+        del sv, si, tv, ti
+        ms_topk = cuda_ms(lambda: topk_smallest(x, k), reps=3)
+        ms_sort = cuda_ms(by_sort, reps=3)
+        log(f"kNN top-k, {what} {list(shape)}, k {k}: topk_smallest "
+            f"{ms_topk:.3f} ms, stable sort cut to k {ms_sort:.3f} ms "
+            f"(same values and positions) {tag}")
+        del x
+    torch.cuda.empty_cache()
+
+
+def small_batch_entry(dev, store_dir: str, router, queries: np.ndarray,
+                      sub: int, launches: int, tag: str) -> dict:
+    """The ``kernels`` entry of B2 at one small-batch run (c) of path 9,
+    ``--sub-nprobe sub``: the run's pass is read again through the engine
+    the CLI builds (its router, saved queries and store), shard by shard as
+    ``StreamedShardEngine.search`` reads it, to find every block that
+    reaches the kernel. Their number must be the run's launches; the block
+    with the most probing queries (rows in the scan's order) is held
+    against the plain version."""
+    from gpann_tpu_torch.cli.scale_bench import K as SCALE_K
+    from gpann_tpu_torch.core.distances import to_device
+    from gpann_tpu_torch.search.relayout import ShardMajorStore
+    from gpann_tpu_torch.search.streamed import StreamedShardEngine
+
+    engine = StreamedShardEngine(None, None, router["rp"], router["rl"],
+                                 store=ShardMajorStore(store_dir), device=dev)
+    probes = engine.probe_order(queries, SCALE_SMALL_NPROBES)
+    blocks = []
+    for b in range(engine.num_shards):
+        qidx = np.nonzero((probes == b).any(1))[0]
+        if len(qidx) == 0:
+            continue
+        rows, members, _ = engine.shard_block(b, queries[qidx], sub or None)
+        if len(members) and engine.takes_binned(len(rows), SCALE_K):
+            blocks.append((len(qidx), len(rows), b))
+    assert launches > 0 and len(blocks) == launches, (len(blocks), launches)
+    nqs, sizes, _ = zip(*blocks)
+    log(f"small batch --sub-nprobe {sub}: {launches} blocks reach B2, "
+        f"{min(sizes)}..{max(sizes)} rows, {min(nqs)}..{max(nqs)} probing "
+        f"queries")
+    mq, size, b = max(blocks)
+    qidx = np.nonzero((probes == b).any(1))[0]
+    rows, _, grouped = engine.shard_block(b, queries[qidx], sub or None)
+    base = to_device(rows, dev)
+    if grouped:
+        base = base[engine.scan_permutation(size).to(dev)]
+    qs = torch.as_tensor(queries[qidx], device=dev)
+    cut = f"top-{sub} sub-clusters" if sub else "whole shards"
+    name = f"binmin_scan (gp small batch, {cut})"
+    return _kernel_entry(name, launches, measure_base_scan(
+        name, f", u8 widened, shard {b}, {cut}"
+        f"{' in the scan order' if grouped else ''}", qs, base, tag,
+        atol=term_atol(qs, base)))
+
+
+def scale_gp_phase(dev, cache_dir: str, bkm_curve, tag: str) -> list:
+    """``cli.scale_bench --method gp`` (module docstring, path 9) in path 6's
+    cache directory, on its base, ground truth and queries: (a) binned, (b)
+    exact on the same store, (c) the small-batch pruning runs. Returns the
+    ``kernels`` entries of B2, each with the launches of the runs at its
+    shape: (a)'s at the store's largest shard with every query, and one for
+    each run of (c) at one of its blocks (:func:`small_batch_entry`)."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.core.distances import to_device
+    from gpann_tpu_torch.search.relayout import ShardMajorStore
+
+    time_topk_choice(dev, tag)
+    t_phase = time.perf_counter()
+    argv = scale_argv(dev, "gp") + [
+        "--gp-subsample", str(SCALE_GP_SUBSAMPLE),
+        "--gp-aggregates", str(SCALE_GP_AGGREGATES)]
+
+    def run(extra, name, curve_len):
+        kernels.reset_launches()
+        out = run_scale_bench(argv + extra, cache_dir,
+                              os.path.join(cache_dir, f"scale_gp_{name}.csv"),
+                              curve_len, f"--method gp {' '.join(extra)}", tag)
+        counted = dict(kernels.LAUNCHES)
+        log(f"launches of scale_bench --method gp {' '.join(extra)}: {counted}")
+        assert counted["bintop2_blocks"] == 0, counted
+        return out, counted["binmin_scan"]
+
+    # (a), (b): the whole curve, binned then exact, from one store
+    (gp, binned, cold, row), launches = run([], "binned", SCALE_SHARDS)
+    assert gp["n"] == SCALE_N and gp["method"] == "gp", gp
+    # the pass probes every shard (min_dist ranks them all): one launch each
+    assert launches == SCALE_SHARDS, launches
+    (aggs_time,) = glob.glob(os.path.join(cache_dir, "*_gp_aggs.npz.time"))
+    with open(aggs_time) as f:
+        aggs_s = json.load(f)["seconds"]
+    log(f"scale_bench --method gp stage seconds: aggregates (subsample "
+        f"{SCALE_GP_SUBSAMPLE}, kNN graph, LP, {SCALE_GP_AGGREGATES} "
+        f"aggregates) {aggs_s:.1f}, fused assign + relayout "
+        f"{float(row['partition_s']) - aggs_s:.1f}, GT {row['gt_s']} (path "
+        f"6's cache), router {row['router_s']}, pass {row['curve_pass_s']}; "
+        f"whole run {cold:.3f} s {tag}")
+    (store_dir,) = glob.glob(os.path.join(cache_dir, "*_gp_store"))
+    store = ShardMajorStore(store_dir)
+    check_gp_store(store, SCALE_N, SCALE_SHARDS)
+    (_, exact, _, _), counted = run(["--scan-mode", "exact"], "exact",
+                                    SCALE_SHARDS)
+    assert counted == 0, counted
+    gap = np.abs(np.asarray(binned) - np.asarray(exact))
+    log("scale_bench --method gp exact curve: " + " ".join(
+        f"{p + 1}:{r:.4f}" for p, r in enumerate(exact)
+        if p < 8 or p + 1 == len(exact)))
+    log(f"scale_bench --method gp: binned against exact, largest gap "
+        f"{gap.max():.6f} at {int(gap.argmax()) + 1} probes (need <= "
+        f"{SCALE_GP_BINNED_SLACK}); last prefix {binned[-1]:.6f} (need >= "
+        f"{SCALE_LAST_PREFIX_MIN})")
+    at = {name: _probes_at(c, SCALE_TARGET)
+          for name, c in (("gp", binned), ("bkm", bkm_curve))}
+    log(f"probes at recall {SCALE_TARGET}: gp {at['gp']} (recall "
+        f"{binned[at['gp'] - 1]:.4f}), bkm {at['bkm']} (recall "
+        f"{bkm_curve[at['bkm'] - 1]:.4f}); same base, GT and queries; 1 probe "
+        f"gp {binned[0]:.4f} bkm {bkm_curve[0]:.4f} {tag}")
+    assert binned[-1] >= SCALE_LAST_PREFIX_MIN, binned[-1]
+    assert gap.max() <= SCALE_GP_BINNED_SLACK, gap.max()
+
+    # (a)'s launches against the plain version at the store's largest shard
+    # with the CLI's queries (saved beside its ground truth), before (c)
+    # regroups the store
+    (gt_path,) = glob.glob(os.path.join(cache_dir, "*_gt.npz"))
+    saved_q = np.load(gt_path)["queries"]
+    b = int(np.argmax(store.sizes))
+    shard = to_device(store.shard_rows(b), dev)
+    qs = to_device(saved_q[:SCALE_NQ], dev)
+    name = "binmin_scan (gp streamed shard)"
+    entries = [_kernel_entry(name, launches, measure_base_scan(
+        name, f", u8 widened, shard {b} of the gp store, every query", qs,
+        shard, tag, atol=term_atol(qs, shard)))]
+    del shard, qs
+
+    # (c) the small-batch pruning runs on the same store, each run's
+    # launches held at one of its blocks
+    (rt_path,) = glob.glob(os.path.join(cache_dir, "*_gp_router.npz"))
+    router = dict(np.load(rt_path))
+    small_q = np.asarray(saved_q[:SCALE_SMALL_NQ], np.float32)
+    gbs = []
+    for sub in SCALE_SMALL_SUB:
+        (_, curve, secs, row), counted = run(
+            ["--nq", str(SCALE_SMALL_NQ), "--max-nprobes",
+             str(SCALE_SMALL_NPROBES), "--sub-size", str(SCALE_SUB_SIZE),
+             "--sub-nprobe", str(sub)], f"small_t{sub}", SCALE_SMALL_NPROBES)
+        gbs.append(float(row["gb_streamed"]))
+        log(f"small batch --sub-nprobe {sub}: {gbs[-1]:.2f} GB streamed, "
+            f"recall {curve[4]:.4f} at 5 probes, {curve[-1]:.4f} at "
+            f"{SCALE_SMALL_NPROBES}, {secs:.3f} s {tag}")
+        entries.append(small_batch_entry(dev, store_dir, router, small_q, sub,
+                                         counted, tag))
+    assert gbs[0] > gbs[1] > gbs[2], gbs
+    log(f"B2 launches on the scale_bench --method gp path: "
+        f"{[e['launches'] for e in entries]}")
+    log(f"scale_bench --method gp phase {time.perf_counter() - t_phase:.3f} s "
+        f"{tag}")
+    return entries
 
 
 def _probes_at(curve, target: float) -> int:
@@ -1509,7 +1746,7 @@ def mips_phase(dev, hard: dict, cache_dir: str, tag: str) -> list:
             "--shards", str(SHARDS), "--nq", str(MIPS_SCALE_NQ), "--n",
             str(MIPS_SCALE_N), "--d", str(D), "--device", str(dev)]
     os.makedirs(cache_dir, exist_ok=True)
-    scale, curve, _ = run_scale_bench(
+    scale, curve, _, _ = run_scale_bench(
         argv, cache_dir, os.path.join(cache_dir, "scale_mips.csv"), SHARDS,
         "--metric mips", tag)
     # the curve pass probes every shard (min_dist ranks them all), so it
@@ -2025,7 +2262,12 @@ def main(profile_only: bool = False) -> int:
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
         # ---- scale_bench and the analysis CLIs ----
-        scale_launches = scale_phase(dev, os.path.join(scratch, "scale"), tag)
+        scale_launches, bkm_curve = scale_phase(
+            dev, os.path.join(scratch, "scale"), tag)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        gp_entries = scale_gp_phase(dev, os.path.join(scratch, "scale"),
+                                    bkm_curve, tag)
+        shutil.rmtree(os.path.join(scratch, "scale"))
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
         analysis_launches = analysis_phase(dev, pts, q, qa_files, scratch, tag)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -2039,14 +2281,15 @@ def main(profile_only: bool = False) -> int:
 
     # launches: paths 1-6's runs for the two entry points at path 1's
     # shapes; the paths' own for the entries at their shapes (path 7's B2
-    # at the routing shape only; path 8's, each at the shape of the launches
-    # it counts)
+    # at the routing shape only; paths 8 and 9's, each at the shape of the
+    # launches it counts)
     paths = (launches, build_launches, qa_launches, bench_launches,
              stream_launches, scale_launches, analysis_launches)
     print(json.dumps({"kernels": [
         _kernel_entry(name, sum(p[name] for p in paths), stats[name])
         for name in ("binmin_scan", "bintop2_blocks")]
-        + [b2_shard, b1_hard, b2_route] + mips_entries}), flush=True)
+        + [b2_shard, b1_hard, b2_route] + mips_entries + gp_entries}),
+          flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

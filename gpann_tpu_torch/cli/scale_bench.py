@@ -208,6 +208,12 @@ def main(argv=None) -> int:
         )
         np.savez(aggs_path, aggs=aggs, labels=agg_lbl)
         _stamp(aggs_path, time.time() - t0)
+        if device.type == "cuda":
+            import torch
+
+            log(f"GP aggregates of a {args.gp_subsample}-point subsample "
+                f"({time.time() - t0:.0f}s): device memory peak "
+                f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
         return aggs, agg_lbl
 
     def _bkm_reps():

@@ -81,6 +81,35 @@ def pairwise_distances(
     return d.sub_(dots.mul_(2.0)).clamp_(min=0.0)
 
 
+def topk_smallest(x: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of ``x`` along its last dimension and their
+    positions, ascending, equal values in ascending position: the order of
+    ``jax.lax.top_k``. ``torch.topk`` picks among equal values in no fixed
+    order, and on byte data, whose L2 distances are exact integers, equal
+    values are common (ROADMAP C12)."""
+    kth = torch.topk(x, k, dim=-1, largest=False).values[..., -1:]
+    n = x.shape[-1]
+    # besides x, at most two bool masks and one int32 array of its size
+    less = x < kth
+    need = k - less.sum(-1, keepdim=True, dtype=torch.int32)
+    ties = x == kth
+    # take: every smaller entry, and the first ``need`` equal ones
+    take = torch.cumsum(ties, -1, dtype=torch.int32).le_(need).logical_and_(
+        ties).logical_or_(less)
+    del less, ties
+    # key: a taken entry's position, n elsewhere (in place, int32)
+    key = take.int().mul_(torch.arange(n, dtype=torch.int32,
+                                       device=x.device) - n).add_(n)
+    del take
+    # the k taken positions, ascending; then ordered by value, stably
+    idx = torch.topk(key, k, dim=-1, largest=False).values.long()
+    del key
+    vals = x.gather(-1, idx)
+    vals, order = torch.sort(vals, dim=-1, stable=True)
+    return vals, idx.gather(-1, order)
+
+
 def topk_neighbors(
     queries: torch.Tensor,
     base: torch.Tensor,

@@ -8,9 +8,9 @@
   mirror ``knn_graph.h:254-265``.
 
 Graphs are dense ``[n, num_neighbors]`` int32 arrays. The leader assignment
-(distance matmul + top-fanout) and the bucket all-pairs (batched matmul +
-top-k) run on the builder's device; the recursion and the global merge stay
-on the host. Randomness is ``np.random.default_rng`` exactly where the JAX
+(distance matmul + top-fanout), the bucket all-pairs (batched matmul +
+top-k) and the global merge's sorts run on the builder's device; the
+recursion stays on the host. Randomness is ``np.random.default_rng`` exactly where the JAX
 package draws it, so both builders pick the same leaders.
 """
 
@@ -26,17 +26,20 @@ import torch
 from gpann_tpu_torch.core.distances import (
     Metric,
     chunked_topk_neighbors,
+    pairwise_distances,
     sq_norms,
     to_device,
-    topk_neighbors,
+    topk_smallest,
 )
 
 Graph = np.ndarray  # [n, num_neighbors] int32 neighbor ids
 
 log = logging.getLogger(__name__)
 
-# device bytes for one batch of [cap, cap] f32 bucket distance tiles
-CRUNCH_TILE_BYTES = 1 << 30
+# device bytes one batch of [cap, cap] bucket tiles may peak at, budgeted as
+# 12 bytes an entry (see _crunch_group)
+CRUNCH_BATCH_BYTES = 3 << 30
+LEADER_ROWS = 1 << 16  # points matched against the leaders per step
 
 
 def build_exact_knn_graph(points: np.ndarray, num_neighbors: int,
@@ -62,8 +65,10 @@ def _crunch_group(bucket_points: torch.Tensor, bucket_sizes: torch.Tensor,
 
     bucket_points [nb, cap, d]; returns (dists [nb, cap, k], local ids).
     Rows and columns past a bucket's size, and the diagonal (no self edges,
-    knn_graph.h:172), are masked to +inf. The [nb, cap, cap] tile is built
-    in place, so the batch peaks at two tiles."""
+    knn_graph.h:172), are masked to +inf. Bytes an entry of the [nb, cap,
+    cap] tile: 8 while it is built (the f32 product and the f32 tile), 10 in
+    the top-k (the tile, two bool masks and int32 ranks of
+    :func:`~gpann_tpu_torch.core.distances.topk_smallest`)."""
     nb, cap, _ = bucket_points.shape
     dev = bucket_points.device
     dots = torch.bmm(bucket_points, bucket_points.transpose(1, 2))
@@ -77,7 +82,21 @@ def _crunch_group(bucket_points: torch.Tensor, bucket_sizes: torch.Tensor,
     valid = pos[None, :] < bucket_sizes[:, None]                     # [nb, cap]
     dm.masked_fill_(~(valid[:, :, None] & valid[:, None, :]), torch.inf)
     dm.masked_fill_((pos[:, None] == pos[None, :])[None], torch.inf)
-    return torch.topk(dm, k, dim=2, largest=False)
+    # equal distances to the lowest local id, as the JAX package's
+    # lax.top_k: byte data ties often (ROADMAP C12)
+    return topk_smallest(dm, k)
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """``np.lexsort(keys)`` for 1-D tensors on their device: the last key
+    sorts first, ties go to the keys before it, full ties keep their
+    order. Stable sorts from the first key to the last."""
+    order = None
+    for key in keys:
+        k = key if order is None else key[order]
+        step = torch.sort(k, stable=True).indices
+        order = step if order is None else order[step]
+    return order
 
 
 class ApproximateKNNGraphBuilder:
@@ -109,13 +128,17 @@ class ApproximateKNNGraphBuilder:
     # -- sketching ------------------------------------------------------------
     def _closest_leaders(self, points: torch.Tensor, ids: np.ndarray,
                          leaders: np.ndarray, fanout: int) -> np.ndarray:
-        """[len(ids), fanout] leader indices (into ``leaders``) per point;
-        ``points`` is the whole set, resident on the device."""
-        sel = torch.as_tensor(ids).to(self.device)
-        lead = torch.as_tensor(leaders).to(self.device)
-        _, idx = topk_neighbors(points[sel], points[lead],
-                                min(fanout, len(leaders)), metric=self.metric)
-        return idx.cpu().numpy()
+        """[len(ids), fanout] leader indices (into ``leaders``) per point,
+        equal distances to the lowest index (C12); ``points`` is the whole
+        set, resident on the device."""
+        lead = points[torch.as_tensor(leaders).to(self.device)]
+        k = min(fanout, len(leaders))
+        out = []
+        for s in range(0, len(ids), LEADER_ROWS):
+            sel = torch.as_tensor(ids[s : s + LEADER_ROWS]).to(self.device)
+            dm = pairwise_distances(points[sel], lead, self.metric)
+            out.append(topk_smallest(dm, k)[1].cpu().numpy())
+        return np.concatenate(out).astype(np.int32)
 
     def _sketch(self, points: torch.Tensor, ids: np.ndarray, depth: int,
                 fanout: int, rng: np.random.Generator) -> List[np.ndarray]:
@@ -178,8 +201,9 @@ class ApproximateKNNGraphBuilder:
         dedup (reference BruteForceBuckets, knn_graph.h:187-250).
 
         Buckets are grouped into power-of-two capacity classes and crunched
-        in batches of at most ``CRUNCH_TILE_BYTES`` of distance tiles (and 64
-        buckets). The merge is a host ``lexsort`` over every candidate edge.
+        in batches that peak at ``CRUNCH_BATCH_BYTES`` (and at most 64
+        buckets). The merge sorts every candidate edge on the device
+        (``_lexsort``).
         """
         t0 = time.perf_counter()
         n = points.shape[0]
@@ -195,7 +219,7 @@ class ApproximateKNNGraphBuilder:
         dst_list: List[np.ndarray] = []
         dist_list: List[np.ndarray] = []
         for cap, bs in sorted(groups.items()):
-            per_batch = max(1, min(64, CRUNCH_TILE_BYTES // (4 * cap * cap)))
+            per_batch = max(1, min(64, CRUNCH_BATCH_BYTES // (12 * cap * cap)))
             kk = min(k, cap - 1)
             for s in range(0, len(bs), per_batch):
                 chunk = bs[s : s + per_batch]
@@ -217,19 +241,22 @@ class ApproximateKNNGraphBuilder:
                     dist_list.append(d[j, :sz, :kv].reshape(-1))
         t1 = time.perf_counter()
 
-        src = np.concatenate(src_list)
-        dst = np.concatenate(dst_list)
-        dist = np.concatenate(dist_list)
+        def edges(parts):
+            return torch.from_numpy(np.concatenate(parts)).to(self.device)
+
+        src, dst, dist = edges(src_list), edges(dst_list), edges(dist_list)
         num_edges = len(src)
-        # global merge: per point, dedup neighbors, keep k smallest
-        # (replaces the reference's per-point spinlock merge, knn_graph.h:221-234)
-        order = np.lexsort((dist, dst, src))
+        # global merge on the device: per point, dedup neighbors, keep k
+        # smallest (replaces the reference's per-point spinlock merge,
+        # knn_graph.h:221-234; the JAX package's host lexsort, same order)
+        order = _lexsort((dist, dst, src))
         src, dst, dist = src[order], dst[order], dist[order]
-        first = np.ones(len(src), dtype=bool)
+        first = torch.ones(len(src), dtype=torch.bool, device=self.device)
         first[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
         src, dst, dist = src[first], dst[first], dist[first]
-        order = np.lexsort((dist, src))
-        src, dst, dist = src[order], dst[order], dist[order]
+        order = _lexsort((dist, src))
+        src, dst = src[order].cpu().numpy(), dst[order].cpu().numpy()
+        del dist, order, first
         starts = np.searchsorted(src, np.arange(n + 1))
         graph = np.full((n, k), -1, dtype=np.int32)
         rank = np.arange(len(src)) - starts[src]

@@ -384,6 +384,22 @@ class StreamedShardEngine:
         return (np.take_along_axis(dcat, sel, axis=1),
                 np.take_along_axis(pcat, sel, axis=1))
 
+    def takes_binned(self, size: int, k: int) -> bool:
+        """Whether a block of ``size`` rows takes the binned scan:
+        bin-top-2 caps candidates at 2*ceil(size/BIN); tiny blocks cannot
+        fill k finite candidates and take the exact scan (the guard of
+        ServingEngine._binned)."""
+        return self.scan_mode == "binned" and 2 * (size // BIN + 1) >= 4 * k
+
+    def scan_permutation(self, size: int) -> torch.Tensor:
+        """The fixed row permutation (on the host) in which a grouped block
+        of ``size`` rows is scanned (see :meth:`_scan_block`): seeded by the
+        size, made once a size."""
+        if size not in self._perms:
+            self._perms[size] = torch.from_numpy(
+                np.random.default_rng(size).permutation(size))
+        return self._perms[size]
+
     def _scan_block(
         self, q_block: torch.Tensor, rows: np.ndarray, k: int, stats: dict,
         grouped: bool = False,
@@ -415,16 +431,10 @@ class StreamedShardEngine:
             ev0.record()
         stats["upload_s"] += time.perf_counter() - t0
         stats["bytes_uploaded"] += rows.nbytes
-        # bin-top-2 caps candidates at 2*ceil(size/BIN); tiny shards cannot
-        # fill k finite candidates and take the exact scan (the guard of
-        # ServingEngine._binned)
         perm = None
-        if self.scan_mode == "binned" and 2 * (size // BIN + 1) >= 4 * k:
+        if self.takes_binned(size, k):
             if grouped:
-                if size not in self._perms:
-                    self._perms[size] = torch.from_numpy(
-                        np.random.default_rng(size).permutation(size))
-                perm = self._perms[size]
+                perm = self.scan_permutation(size)
                 blk = blk[perm.to(self.device)]
             d, pos = fused_topk(q_block, blk, size, k, self.metric)
         else:
@@ -442,6 +452,59 @@ class StreamedShardEngine:
         if perm is not None:
             pn = np.where(live, perm.numpy()[pn], 0)
         return dn, pn
+
+    def shard_block(self, b: int, qv: np.ndarray,
+                    sub_nprobe: Optional[int] = None):
+        """What a pass reads of probed shard ``b`` for its probing queries
+        ``qv``: ``(rows, members, grouped)``, the host rows in the order of
+        the upload, their ids, and whether the rows lie sub-cluster by
+        sub-cluster (scanned in :meth:`scan_permutation`'s order, see
+        :meth:`_scan_block`). ``sub_nprobe``: read only the union of each
+        query's ``sub_nprobe`` closest sub-clusters (None: the whole
+        shard)."""
+        if self.store is not None:
+            members = self.store.shard_ids(b)
+        else:
+            members = self.clusters[b]
+        if len(members) == 0:
+            return np.empty((0, self.dim)), members, False
+        # a sub-cluster-major store holds sub-clusters side by side in
+        # every read of its shards, pruned or whole
+        grouped = self.store is not None and self.sub_slices is not None
+        if self.store is not None:
+            srows = self.store.shard_rows(b)
+            if sub_nprobe is not None \
+                    and len(self.sub_centroids[b]) > sub_nprobe:
+                # pruning COMPOSED with the contiguous layout: the store
+                # is sub-cluster-major, so each chosen sub-cluster reads
+                # as one contiguous slice of the shard file; members are
+                # concatenated in the same order as the rows
+                chosen = _chosen_subclusters(
+                    qv, self.sub_centroids[b], sub_nprobe, self.metric)
+                off = self.sub_slices[b]
+                rows = np.concatenate(
+                    [srows[off[c]: off[c + 1]] for c in chosen])
+                members = np.concatenate(
+                    [np.asarray(members[off[c]: off[c + 1]])
+                     for c in chosen]).astype(np.int64)
+            else:
+                # shard-major layout: ONE contiguous read, the
+                # reference's streaming read of owned ranges
+                # (distributed_query_benchmark.h:48-84)
+                rows = np.array(srows)
+        elif sub_nprobe is not None and len(self.sub_members[b]) > sub_nprobe:
+            # in-shard pruning: gather and upload ONLY the union of each
+            # probing query's sub_nprobe closest sub-clusters
+            chosen = _chosen_subclusters(
+                qv, self.sub_centroids[b], sub_nprobe, self.metric)
+            members = np.concatenate(
+                [self.sub_members[b][c] for c in chosen])
+            rows = np.asarray(self.points[members])
+            grouped = True
+        else:
+            # memmap fancy-index: reads only this shard's rows
+            rows = np.asarray(self.points[members])
+        return rows, members, grouped
 
     # -- full evaluation pass --------------------------------------------------
     def search(
@@ -499,53 +562,14 @@ class StreamedShardEngine:
                 "before pruned search")
 
         for b in range(lo, hi):
-            if self.store is not None:
-                members = self.store.shard_ids(b)
-            else:
-                members = self.clusters[b]
-            if len(members) == 0:
-                continue
             qidx, slot = np.nonzero(probes == b)
             if len(qidx) == 0:
                 continue
             t0 = time.perf_counter()
-            # a sub-cluster-major store holds sub-clusters side by side in
-            # every read of its shards, pruned or whole
-            grouped = self.store is not None and self.sub_slices is not None
-            if self.store is not None:
-                srows = self.store.shard_rows(b)
-                if use_subs and len(self.sub_centroids[b]) > sub_nprobe:
-                    # pruning COMPOSED with the contiguous layout: the store
-                    # is sub-cluster-major, so each chosen sub-cluster reads
-                    # as one contiguous slice of the shard file; members are
-                    # concatenated in the same order as the rows
-                    chosen = _chosen_subclusters(
-                        queries[qidx], self.sub_centroids[b], sub_nprobe,
-                        self.metric)
-                    off = self.sub_slices[b]
-                    rows = np.concatenate(
-                        [srows[off[c]: off[c + 1]] for c in chosen])
-                    members = np.concatenate(
-                        [np.asarray(members[off[c]: off[c + 1]])
-                         for c in chosen]).astype(np.int64)
-                else:
-                    # shard-major layout: ONE contiguous read, the
-                    # reference's streaming read of owned ranges
-                    # (distributed_query_benchmark.h:48-84)
-                    rows = np.array(srows)
-            elif use_subs and len(self.sub_members[b]) > sub_nprobe:
-                # in-shard pruning: gather and upload ONLY the union of each
-                # probing query's sub_nprobe closest sub-clusters
-                chosen = _chosen_subclusters(
-                    queries[qidx], self.sub_centroids[b], sub_nprobe,
-                    self.metric)
-                members = np.concatenate(
-                    [self.sub_members[b][c] for c in chosen])
-                rows = np.asarray(self.points[members])
-                grouped = True
-            else:
-                # memmap fancy-index: reads only this shard's rows
-                rows = np.asarray(self.points[members])
+            rows, members, grouped = self.shard_block(
+                b, queries[qidx], sub_nprobe if use_subs else None)
+            if len(members) == 0:
+                continue
             stats["gather_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
             mq = len(qidx)

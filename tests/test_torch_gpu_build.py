@@ -45,6 +45,33 @@ def test_argmax_argmin_take_the_first_index(cuda):
 
 
 @pytest.mark.gpu
+def test_byte_data_knn_graph_same_on_cuda(cuda):
+    """Byte points have exact integer distances, so equal ones are common;
+    ``topk_smallest`` orders them by position on both devices, the merge's
+    sort keeps full ties in input order on both, and the approximate kNN
+    graph of 12k u8 points (a sketching recursion) is the CPU's edge for
+    edge (C12)."""
+    from gpann_tpu_torch.core.distances import topk_smallest
+    from gpann_tpu_torch.eval.synth import VirtualPoints
+    from gpann_tpu_torch.graph.knn import ApproximateKNNGraphBuilder, _lexsort
+
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 6, (8, 300, 2000)).astype(np.float32))
+    for k in (1, 10):
+        cv, ci = topk_smallest(x, k)
+        gv, gi = topk_smallest(x.to(cuda), k)
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv)
+    keys = tuple(x[0, :3].reshape(3, -1))      # the merge's sort: 3 keys
+    assert torch.equal(_lexsort(tuple(k.to(cuda) for k in keys)).cpu(),
+                       _lexsort(keys))
+    pts = np.asarray(VirtualPoints("hard2", 12_000, 16, 555, dtype="u8")[:],
+                     np.float32)
+    want = ApproximateKNNGraphBuilder(seed=555, device="cpu").build(pts, 10)
+    got = ApproximateKNNGraphBuilder(seed=555, device=cuda).build(pts, 10)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
 def test_partition_graph_same_on_cuda(cuda):
     from gpann_tpu_torch.gp.lp import partition_graph
     from gpann_tpu_torch.graph.knn import build_exact_knn_graph, symmetrize_to_csr

@@ -10,8 +10,13 @@ The CPU results are held against the JAX package by
 distances agree at rtol = atol = 1e-4 (the kernel's split-TF32 product
 against the CPU's f32 product), ids stand for the distances reported, a
 sliced pass equals the unsliced one, and a pass over a store launches kernel
-B2 exactly once per probed shard.
+B2 exactly once per probed shard. A small GP store built on the card by
+``cli.scale_bench --method gp`` holds every id once and its binned curve
+lies within 0.002 of its exact one.
 """
+
+import contextlib
+import io
 
 import numpy as np
 import pytest
@@ -179,3 +184,44 @@ def test_kernel_b2_at_streamed_shapes(cuda):
         exact = ((q[:, None, :] - base[i.long()]) ** 2).sum(-1)
         torch.testing.assert_close(d, exact, rtol=1e-4, atol=1e-3)
         assert int(i.max()) < rows
+
+
+@pytest.mark.gpu
+def test_gp_store_on_cuda_binned_within_exact(cuda, tmp_path, monkeypatch):
+    """``cli.scale_bench --method gp`` on the card (the fused assign of
+    chip_smoke.py's path 9 at 200k x 32 u8, 8 shards of ~25k rows, over the
+    binned guard): every id of ``range(n)`` once, no shard above the
+    capacity, the binned curve within 0.002 of the exact one on the same
+    store, router and queries, one B2 launch a shard in the binned pass and
+    none in the exact one."""
+    from gpann_tpu_torch import kernels
+    from gpann_tpu_torch.cli import scale_bench
+    from gpann_tpu_torch.search.relayout import ShardMajorStore
+
+    n, shards = 200_000, 8
+    monkeypatch.setenv("GPANN_CACHE_DIR", str(tmp_path))
+    argv = ["--kind", "hard2", "--dtype", "u8", "--base", "virtual",
+            "--layout", "shard-major", "--method", "gp", "--gp-subsample",
+            "20000", "--gp-aggregates", "512", "--n", str(n), "--d", "32",
+            "--shards", str(shards), "--nq", "256", "--train-sample", "20000",
+            "--device", str(cuda)]
+    curves = {}
+    for mode, launches in (("binned", shards), ("exact", 0)):
+        out = tmp_path / f"{mode}.csv"
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert scale_bench.main(argv + ["--scan-mode", mode, "--out",
+                                            str(out)]) == 0
+        assert kernels.LAUNCHES == {"binmin_scan": launches,
+                                    "bintop2_blocks": 0}
+        rows = [line.split(",")
+                for line in out.read_text().strip().split("\n")[1:]]
+        curves[mode] = np.asarray([float(r[8]) for r in rows])
+    store = ShardMajorStore(
+        str(tmp_path / f"scale_hard2_555_{n}_32_{shards}_u8_gp_store"))
+    assert store.sizes.max() <= int(1.05 * np.ceil(n / shards))
+    ids = np.concatenate([store.shard_ids(b) for b in range(shards)])
+    np.testing.assert_array_equal(np.sort(ids), np.arange(n))
+    np.testing.assert_allclose(curves["binned"], curves["exact"], rtol=0,
+                               atol=0.002)
+    assert curves["binned"][-1] >= 0.999

@@ -183,3 +183,56 @@ def test_approximate_graph_matches(metric):
     for a, b in zip(tknn.symmetrize_to_csr(want), jknn.symmetrize_to_csr(want)):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
+
+
+def test_topk_smallest_orders_ties_as_lax_top_k():
+    """Equal values go out in ascending position, as ``jax.lax.top_k``
+    gives them; small integers make most entries ties, +inf fills masked
+    rows (C12)."""
+    import jax
+
+    from gpann_tpu_torch.core.distances import topk_smallest
+
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 6, size=(3, 40, 300)).astype(np.float32)
+    x[0, :, 5:] = np.inf        # fewer finite entries than k
+    x[1, 3] = 2.0               # a row of one value
+    for k in (1, 7, 16):
+        neg, want = jax.lax.top_k(-jnp.asarray(x), k)
+        vals, got = topk_smallest(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(vals.numpy(), -np.asarray(neg))
+
+
+def test_merge_sort_orders_as_np_lexsort():
+    """The graph merge's device sort (``knn._lexsort``) gives
+    ``np.lexsort``'s order, full ties in their input order."""
+    rng = np.random.default_rng(3)
+    for n in (1, 9, 50_000):
+        src, dst = rng.integers(0, 40, (2, n))
+        dist = rng.integers(0, 4, n).astype(np.float32)
+        for keys in ((dist, dst, src), (dist, src)):
+            got = tknn._lexsort(tuple(torch.from_numpy(x) for x in keys))
+            np.testing.assert_array_equal(got.numpy(), np.lexsort(keys))
+
+
+def test_approximate_graph_on_byte_data_equals_jax():
+    """Byte points (the ``hard2`` u8 bases of ``cli.scale_bench``) have exact
+    integer L2 distances, so ties are common: the port breaks them to the
+    lowest id in the leader match and the bucket top-k, as the JAX package
+    does, and builds the same graph, hence the same LP partition (C12;
+    before, 5 of 20,000 edges of a 2000-point graph differed, and the
+    partition with them). 12k points force a sketching recursion."""
+    from gpann_tpu.eval.synth import VirtualPoints as JPoints
+    from gpann_tpu.gp.partitioning import partition_dense_graph as jpart
+    from gpann_tpu_torch.gp.partitioning import partition_dense_graph as tpart
+
+    pts = np.asarray(JPoints("hard2", 12_000, 16, 555, dtype="u8")[:],
+                     np.float32)
+    want = jknn.ApproximateKNNGraphBuilder(seed=555).build(pts, 10)
+    got = tknn.ApproximateKNNGraphBuilder(seed=555, device="cpu").build(pts,
+                                                                        10)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tpart(got, 8, 0.05, seed=555, device="cpu"),
+        np.asarray(jpart(want, 8, 0.05, seed=555)))

@@ -182,6 +182,74 @@ def test_scale_bench_gp_method_close_to_jax_cli(tmp_path):
     assert os.path.exists(tmp_path / "tc" / "scale_hard_555_6000_16_8_u8_gp_aggs.npz")
 
 
+# The GP pipeline in the layout of the large runs (README.md:384-458): a
+# regenerated byte base, the fused assign + relayout in 3-chunk invocations,
+# whole shards and pruned small batches. The kNN graphs, LP partitions and
+# balances of the two packages are equal on byte data (ROADMAP C12); the
+# curves still differ a little because the router is trained on a sample of
+# the store drawn by row position, and the two stores order a chunk's rows
+# differently (C7, C10): 1 of the 320 neighbours, 0.003125, at 3 probes.
+# At this size every shard is under the binned scan's guard of 4k
+# candidates, so both CLIs take the exact scan; the port's binned scan of a
+# GP store is held against its exact scan by the store test below (and on
+# the card by tests/test_torch_gpu_streamed.py).
+GP_ARGS = ["--dtype", "u8", "--method", "gp", "--gp-subsample", "2000",
+           "--gp-aggregates", "64"]
+GP_STORE = ["--kind", "hard2", "--base", "virtual", "--layout", "shard-major",
+            "--assign-chunks", "3"]
+GP_SUBS = ["--sub-nprobe", "2", "--sub-size", "256", "--max-nprobes", "3"]
+
+
+@pytest.mark.parametrize("subs", [False, True], ids=["whole", "subs"])
+def test_scale_bench_gp_shard_major_close_to_jax_cli(tmp_path, subs):
+    extra = GP_ARGS + GP_STORE + (GP_SUBS if subs else [])
+    jrows, jsum, jcalls = run_scale(jscale, tmp_path / "jc", tmp_path / "j.csv",
+                                    extra)
+    trows, tsum, tcalls = run_scale(tscale, tmp_path / "tc", tmp_path / "t.csv",
+                                    extra, ["--device", "cpu"])
+    assert tcalls == jcalls
+    assert len(trows) == len(jrows) == (3 if subs else 8)
+    np.testing.assert_allclose([float(r[8]) for r in trows],
+                               [float(r[8]) for r in jrows], atol=0.01)
+    assert tsum["balance"] == jsum["balance"] <= 1.05
+    assert tsum["method"] == "gp" and tsum["sub_nprobe"] == (2 if subs else 0)
+    assert (tmp_path / "tc" / "scale_hard2_555_6000_16_8_u8_gp_store"
+            / "meta.json").exists()
+    if not subs:
+        assert float(trows[-1][8]) == 1.0
+
+
+def test_scale_bench_gp_store_ids_and_binned_recall(tmp_path):
+    """The port's GP store at 200k x 32 u8, 8 shards of ~25k rows (over the
+    binned guard): every id of ``range(n)`` once, no shard above the
+    capacity of ``capacity_assign_to_store``, and the binned scan's curve
+    within 0.002 of the exact scan's on the same store, router and queries
+    (the check of chip_smoke.py's path 9 at 16M on the card)."""
+    from gpann_tpu_torch.search.relayout import ShardMajorStore
+
+    n, shards = 200_000, 8
+    extra = GP_STORE + ["--dtype", "u8", "--method", "gp", "--gp-subsample",
+                        "20000", "--gp-aggregates", "512", "--n", str(n),
+                        "--d", "32", "--nq", "256", "--train-sample", "20000"]
+    curves = {}
+    for mode in ("binned", "exact"):
+        rows, summary, _ = run_scale(tscale, tmp_path / "c",
+                                     tmp_path / f"{mode}.csv",
+                                     extra + ["--scan-mode", mode],
+                                     ["--device", "cpu"])
+        assert summary["balance"] <= 1.05
+        curves[mode] = np.asarray([float(r[8]) for r in rows])
+    store = ShardMajorStore(str(tmp_path / "c" /
+                                f"scale_hard2_555_{n}_32_{shards}_u8_gp_store"))
+    assert store.sizes.max() <= int(1.05 * np.ceil(n / shards))
+    assert store.sizes.min() > 4 * 10 * 128 // 2  # binned, not the guard
+    ids = np.concatenate([store.shard_ids(b) for b in range(shards)])
+    np.testing.assert_array_equal(np.sort(ids), np.arange(n))
+    np.testing.assert_allclose(curves["binned"], curves["exact"], rtol=0,
+                               atol=0.002)
+    assert curves["binned"][-1] >= 0.999
+
+
 @pytest.mark.parametrize("flag", ["--isolate-stages", "--shard-chunk=4",
                                   "--curve-partial=0:4:x.npz",
                                   "--until=partition"])

@@ -283,6 +283,56 @@ def test_regrouped_store_keeps_binned_recall(tmp_path, sub_size):
     assert last["exact"] == 1.0, last
 
 
+@pytest.mark.parametrize("sub_nprobe", [None, 1], ids=["whole", "pruned"])
+def test_shard_block_is_what_a_pass_scans(tmp_path, monkeypatch, sub_nprobe):
+    """``shard_block``, ``takes_binned`` and ``scan_permutation`` give, shard
+    by shard, the blocks that a pass over a sub-cluster-major store hands
+    to the binned scan, whole or pruned: the same query rows and the same
+    rows in the same order (chip_smoke.py holds kernel B2 on such a
+    block)."""
+    from gpann_tpu_torch.core.distances import to_device
+    from gpann_tpu_torch.search import streamed
+
+    n, d, s, k = 40_000, 16, 4, 10
+    base = VirtualPoints("hard2", n, d, 9, dtype="u8", chunk_rows=1 << 14)
+    q = generate_queries("hard2", 8, d, 9, dtype="u8").astype(np.float32)
+    cents = np.asarray(base[:: n // s][:s], np.float32)
+    labels = np.arange(s)
+    assert trel.capacity_assign_to_store(base, cents, labels, s, str(tmp_path),
+                                         eps=0.05, chunk_rows=1 << 14,
+                                         device="cpu")
+    engine = StreamedShardEngine(None, None, cents, labels,
+                                 store=trel.ShardMajorStore(str(tmp_path)),
+                                 device="cpu")
+    engine.build_subclusters_store(target_sub_size=3000, train_sample=4096)
+    scanned = []
+
+    def recording(qs, blk, *args, **kw):
+        scanned.append((qs.clone(), blk.clone()))
+        return fused_topk(qs, blk, *args, **kw)
+
+    fused_topk = streamed.fused_topk
+    monkeypatch.setattr(streamed, "fused_topk", recording)
+    engine.search(q, k, 2, sub_nprobe=sub_nprobe)
+    probes = engine.probe_order(q, 2)
+    replayed = []
+    for b in range(s):
+        qidx = np.nonzero((probes == b).any(1))[0]
+        if len(qidx) == 0:
+            continue
+        rows, _, grouped = engine.shard_block(b, q[qidx], sub_nprobe)
+        assert grouped
+        if not engine.takes_binned(len(rows), k):
+            continue
+        blk = to_device(rows, "cpu")[engine.scan_permutation(len(rows))]
+        replayed.append((torch.as_tensor(q[qidx]), blk))
+    assert len(replayed) == len(scanned) >= 2
+    if sub_nprobe:
+        assert sum(len(b) for _, b in scanned) < n
+    for (gq, gb), (wq, wb) in zip(scanned, replayed):
+        assert torch.equal(gq, wq) and torch.equal(gb, wb)
+
+
 # -- routing -------------------------------------------------------------------
 
 @pytest.mark.parametrize("voting_impl", ["exact", "rescore"])
