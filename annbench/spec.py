@@ -1,0 +1,84 @@
+"""What a cell is made of, found by name.
+
+``BENCHMARK.json`` names each cell's configuration and traffic mix, and the
+metrics with the cells that report them. The files behind the names:
+
+- ``annbench/configs/<config>.json``: the deployment (data, index, engine,
+  routing);
+- ``annbench/traffic/<traffic>.json``: the mix (loop, batch, query pool);
+- ``annbench/limits/<cell>.json``: the limit of each number that decides
+  ``correct``;
+- ``annbench/metrics/<metric>.py``: the reader of a per-layer metric.
+
+A metric named ``<quantity>.<regime>`` is its quantity in the cells of one
+regime (cells whose runs spread alike, and so share a bound): an end-to-end
+one reads ``<quantity>``, a per-layer one ``metrics/<quantity>.py`` unless
+``metrics/<metric>.py`` is there.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+from typing import NamedTuple
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+class Cell(NamedTuple):
+    name: str
+    config: dict
+    traffic: dict
+    limits: dict
+    chips: int
+    end_to_end: list     # metric entries of BENCHMARK.json this cell reports
+    per_layer: list
+
+
+def _load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _reports(metric: dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json") -> Cell:
+    bench = _load_json(benchmark)
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r} in {benchmark.name}; "
+                       f"known: {sorted(cells)}")
+    w = cells[name]
+    return Cell(
+        name=name,
+        config=_load_json(HERE / "configs" / f"{w['config']}.json"),
+        traffic=_load_json(HERE / "traffic" / f"{w['traffic']}.json"),
+        limits=_load_json(HERE / "limits" / f"{name}.json")["limits"],
+        chips=int(w["chips"]),
+        end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
+        per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
+    )
+
+
+def quantity(metric: str) -> str:
+    """What a metric measures: its name up to the first dot."""
+    return metric.split(".", 1)[0]
+
+
+def reader(metric: str):
+    """The ``read(ctx)`` function of ``annbench/metrics/<metric>.py``, else
+    of ``annbench/metrics/<quantity>.py``."""
+    path = HERE / "metrics" / f"{metric}.py"
+    if not path.exists():
+        path = HERE / "metrics" / f"{quantity(metric)}.py"
+    spec = importlib.util.spec_from_file_location(
+        "annbench.metrics." + metric.replace(".", "__"), path)
+    if spec is None or not path.exists():
+        raise FileNotFoundError(f"no reader for metric {metric!r} at {path}")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
