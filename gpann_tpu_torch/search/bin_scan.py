@@ -34,6 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from gpann_tpu_torch.core import profiling
 from gpann_tpu_torch.core.distances import Metric, sq_norms
 from gpann_tpu_torch.search.ivf import _round_up
 
@@ -258,7 +259,9 @@ def fused_topk_blocks(queries_blocks: torch.Tensor, base_flat: torch.Tensor,
     """Per-block top-k: block ``b``'s ``qb`` query rows are scanned against
     base rows ``[row_off[b], row_off[b] + cap)`` (live prefix ``sizes[b]``).
 
-    Returns ``(dists [nb*qb, k], LOCAL row ids [nb*qb, k] int32)``.
+    Returns ``(dists [nb*qb, k], LOCAL row ids [nb*qb, k] int32)``. With a
+    recorder installed, phase 1 records a ``scan.b1`` span and phases 2-3 a
+    ``scan.phase2`` span.
     """
     nb = row_off.shape[0]
     if queries_blocks.shape[0] != nb * qb:
@@ -266,8 +269,16 @@ def fused_topk_blocks(queries_blocks: torch.Tensor, base_flat: torch.Tensor,
     if cap % BIN:
         raise ValueError(f"cap={cap} must be a multiple of {BIN}")
     nc = num_candidate_bins or max(k, 16)
+    rec = profiling.RECORDER
+    if rec is not None:
+        step = rec.begin("scan.b1", queries_blocks.device)
     mins, argmins = bintop2_blocks(queries_blocks, base_flat, row_off, sizes,
                                    qb, cap, metric)
+    if rec is not None:
+        step = rec.next(step, "scan.phase2", queries_blocks.device)
     row_base = row_off.to(torch.int64).repeat_interleave(qb)
-    return _select_and_rescore(queries_blocks, base_flat, mins, argmins,
-                               row_base, k, nc, metric, phase2)
+    out = _select_and_rescore(queries_blocks, base_flat, mins, argmins,
+                              row_base, k, nc, metric, phase2)
+    if rec is not None:
+        rec.end(step, queries_blocks.device)
+    return out

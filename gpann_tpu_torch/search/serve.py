@@ -17,6 +17,13 @@ Each batch of queries goes through four steps on the engine's device:
 4. **Merge**: per-probe top-k lists are scattered to a per-query table,
    deduplicated by id when shards overlap, and reduced to the final top-k.
 
+With a recorder installed (:func:`gpann_tpu_torch.core.profiling.recording`)
+each batch records a ``serve.batch`` span with one child a step
+(``serve.route``, ``serve.group``, ``serve.scan``, ``serve.merge`` and, in
+:meth:`ServingEngine.serve`, ``serve.readback``), and the binned scan counts
+its block rows (``b1.rows_real``, ``b1.rows_scanned``). Without one, each
+call site reads one module global and nothing else.
+
 PyTorch runs eagerly, so there is no compiled program per configuration.
 Scatters that JAX drops when out of bounds (the dummy shard) go to one spare
 column that is sliced off.
@@ -29,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from gpann_tpu_torch.core import profiling
 from gpann_tpu_torch.core.distances import Metric, sq_norms
 from gpann_tpu_torch.core.partition import Clusters
 from gpann_tpu_torch.search.bin_scan import (BIN, fused_topk,
@@ -312,6 +320,12 @@ class ServingEngine:
         s, cap = self.num_shards, self.capacity
         if self._binned(k):
             qrows, row_off, sizes = self._scan_blocks(queries, g, qb)
+            rec = profiling.RECORDER
+            if rec is not None:
+                scanned = sizes > 0
+                rec.count("b1.rows_real", ((g.pair_q.view(-1, qb) < m)
+                                           & scanned[:, None]).sum())
+                rec.count("b1.rows_scanned", scanned.sum() * qb)
             bd, lpos = fused_topk_blocks(
                 qrows, self.shard_points, row_off, sizes, k, self.metric,
                 qb=qb, cap=cap, num_candidate_bins=self.scan_nc,
@@ -348,11 +362,22 @@ class ServingEngine:
         return bd.view(-1, k), bi.view(-1, k)
 
     def _pipeline(self, queries, k: int, nprobes: int, voting_t: int,
-                  rule: str, qb: int, spann_eps: float, kth=None):
+                  rule: str, qb: int, spann_eps: float, kth=None,
+                  to_host: bool = False):
         m = queries.shape[0]
+        rec = profiling.RECORDER
+        if rec is not None:
+            batch = rec.begin("serve.batch", self.device, root=True)
+            step = rec.begin("serve.route", self.device)
         probes = self._route(queries, nprobes, voting_t, rule, spann_eps)
+        if rec is not None:
+            step = rec.next(step, "serve.group", self.device)
         g = _group(probes, self.num_shards, qb)
+        if rec is not None:
+            step = rec.next(step, "serve.scan", self.device)
         bd, bi = self._scan(queries, g, k, qb)
+        if rec is not None:
+            step = rec.next(step, "serve.merge", self.device)
 
         # ---- merge ----
         out_d = torch.full((m + 1, nprobes, k), torch.inf, device=self.device)
@@ -381,9 +406,18 @@ class ServingEngine:
             hit = (cat_d <= thresh[:, None]).view(m, nprobes, k)
             cum = torch.cumsum(hit.sum(dim=2), dim=1)
             capped = torch.clamp(cum, max=k).to(torch.float32)
-            return capped.sum(dim=0) / (k * m)
-        fd, fpos = torch.topk(cat_d, k, dim=1, largest=False)
-        return fd, cat_i.gather(1, fpos)
+            out = capped.sum(dim=0) / (k * m)
+        else:
+            fd, fpos = torch.topk(cat_d, k, dim=1, largest=False)
+            out = fd, cat_i.gather(1, fpos)
+            if to_host:
+                if rec is not None:
+                    step = rec.next(step, "serve.readback", self.device)
+                out = out[0].cpu().numpy(), out[1].cpu().numpy()
+        if rec is not None:
+            rec.end(step, self.device)
+            rec.end(batch, self.device)
+        return out
 
     # -- public entry points ---------------------------------------------------
     def serve_device(self, queries, k: int, nprobes: int, voting_t: int = 60,
@@ -408,9 +442,8 @@ class ServingEngine:
               spann_eps: float = 0.6) -> Tuple[np.ndarray, np.ndarray]:
         """End-to-end routed search; returns numpy ``(dists [m, k],
         ids [m, k] int32)``, ids -1 where fewer than k candidates exist."""
-        d, i = self.serve_device(queries, k, nprobes, voting_t, rule,
-                                 query_block, spann_eps)
-        return d.cpu().numpy(), i.cpu().numpy()
+        return self._pipeline(self._queries(queries), k, nprobes, voting_t,
+                              rule, query_block, spann_eps, to_host=True)
 
     def recall_curve(self, queries, k: int, kth_dist, voting_t: int = 60,
                      rule: str = "min_dist", query_block: int = 1024,

@@ -11,15 +11,11 @@ sub-clusters, hit sets, probe orders and the routing configs' fields are
 identical.
 """
 
-import json
-import os
-
 import numpy as np
 import pytest
 import torch
 
 from gpann_tpu.cluster import balanced_kmeans
-from gpann_tpu.core import profiling as jprof
 from gpann_tpu.core.partition import partition_to_clusters
 from gpann_tpu.eval import compute_ground_truth, kth_neighbor_distance
 from gpann_tpu.route import flat as jflat
@@ -304,12 +300,6 @@ def test_timer_states():
 
 
 def test_profiling_counters_match():
-    for passes in (1, 3):
-        assert (tprof.flops_of_scan(4096, 8_000_000, 96, passes)
-                == jprof.flops_of_scan(4096, 8_000_000, 96, passes))
-    assert tprof.flops_of_scan(2, 3, 4) == jprof.flops_of_scan(2, 3, 4)
-    assert (tprof.distance_computations(7, 11)
-            == jprof.distance_computations(7, 11) == 77)
     st = tprof.StageTimer()
     for name in ("b", "a", "b"):
         with st.stage(name):
@@ -318,12 +308,3 @@ def test_profiling_counters_match():
     lines = st.report().split("\n")
     assert [line.split(":")[0] for line in lines] == ["a", "b"]
     assert lines[1].endswith("over 2 calls")
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with tprof.trace(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    with open(tmp_path / "prof" / tprof.TRACE_FILE) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
-    assert os.path.getsize(tmp_path / "prof" / tprof.TRACE_FILE) > 0
