@@ -186,8 +186,9 @@ def binmin_scan(qs: torch.Tensor, base: torch.Tensor, n_valid,
         raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
     cap = _round_up(max(n, 1), BIN)
     row_off = torch.zeros(1, dtype=torch.int64, device=qs.device)
-    sizes = torch.as_tensor(n_valid, dtype=torch.int32,
-                            device=qs.device).reshape(1)
+    # filled on the device: a tensor made from a host number would be a
+    # blocking copy
+    sizes = torch.full((1,), n_valid, dtype=torch.int32, device=qs.device)
     return kernels.bintop2(qs, base, row_off, sizes, qs.shape[0], cap, metric,
                            entry="binmin_scan")
 

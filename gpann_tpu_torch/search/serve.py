@@ -24,6 +24,11 @@ each batch records a ``serve.batch`` span with one child a step
 its block rows (``b1.rows_real``, ``b1.rows_scanned``). Without one, each
 call site reads one module global and nothing else.
 
+The binned scan mode enqueues a whole batch without waiting on the device:
+no step reads a device value back or copies a host value over, so the host
+first waits in :meth:`ServingEngine.serve`'s read-back of the results. (The
+exact scan mode reads each block's shard id on the host.)
+
 PyTorch runs eagerly, so there is no compiled program per configuration.
 Scatters that JAX drops when out of bounds (the dummy shard) go to one spare
 column that is sliced off.
@@ -97,17 +102,18 @@ def _probe_rank(queries, router_points, router_labels, router_sq, *, s: int,
     # one spare column takes the dummy shard's votes
     min_d = torch.full((m, s + 1), torch.inf, device=dev).scatter_reduce_(
         1, nshard, ndist, reduce="amin")[:, :s]
-    # unseen shards keep +inf; sort keys use a finite big number
-    dkey = torch.where(torch.isfinite(min_d), min_d,
-                       torch.tensor(3e38, device=dev))
+    # unseen shards keep +inf; sort keys use a finite big number (a Python
+    # scalar: a tensor made from it would be a blocking host-to-device copy)
+    dkey = torch.where(torch.isfinite(min_d), min_d, 3e38)
     if rule == "frequency":
         # only the single most-voted shard goes first (ties -> lowest index);
         # the rest are ordered by min_dist (hnsw_router.h:87-103)
         freq = torch.zeros((m, s + 1), dtype=torch.int32, device=dev)
         freq.scatter_add_(1, nshard, torch.ones_like(nshard, dtype=torch.int32))
-        top = freq[:, :s].argmax(dim=1)
-        key = dkey.clone()
-        key[torch.arange(m, device=dev), top] = -torch.inf
+        top = freq[:, :s].argmax(dim=1, keepdim=True)
+        # scatter of a scalar: an indexed write of one copies it to the
+        # device first, which blocks the host
+        key = dkey.scatter(1, top, -torch.inf)
         order = torch.argsort(key, dim=1, stable=True)
         seen = torch.ones((m, s), dtype=torch.bool, device=dev)
     else:
@@ -143,12 +149,14 @@ def _group(probes: torch.Tensor, s: int, qb: int) -> Grouping:
     b_sorted = flat_b[sort]
     q_sorted = sort // nprobes
     slot_sorted = sort % nprobes
-    counts = torch.bincount(b_sorted, minlength=s + 1)
+    # each shard's first row in the sorted list, and its count, from the
+    # list itself: bincount would read the list's min and max to the host
+    edges = torch.searchsorted(b_sorted, torch.arange(s + 2, device=dev))
+    counts = edges.diff()
+    first = edges[:-1]
     padded = (counts + qb - 1) // qb * qb
     cum_padded = torch.cumsum(padded, 0)
     starts = cum_padded - padded
-    first = torch.searchsorted(b_sorted, torch.arange(s + 1, device=dev),
-                               right=False)
     rank = torch.arange(mn, device=dev) - first[b_sorted]
     pos = starts[b_sorted] + rank
     total = -(-mn // qb) * qb + (s + 1) * qb  # static worst case

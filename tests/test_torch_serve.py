@@ -16,7 +16,8 @@ from gpann_tpu.core.partition import partition_to_clusters
 from gpann_tpu.eval import compute_ground_truth, kth_neighbor_distance, recall_from_ids
 from gpann_tpu.route import centroid_router
 from gpann_tpu.search.serve import ServingEngine as JaxEngine
-from gpann_tpu_torch.search.serve import ServingEngine
+from gpann_tpu_torch.core import profiling
+from gpann_tpu_torch.search.serve import ServingEngine, _group, _probe_rank
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARRAYS = ("shard_points", "shard_sizes_ext", "shard_ids", "router_points",
@@ -33,11 +34,12 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
-def port(jeng, device="cpu"):
+def port(jeng, device="cpu", **config_changes):
     """The port's engine on the JAX engine's state."""
     arrays = {name: np.asarray(getattr(jeng, name)) for name in ARRAYS}
     config = {name: getattr(jeng, name) for name in CONFIG}
-    return ServingEngine.from_state(arrays, config, device=device)
+    return ServingEngine.from_state(arrays, {**config, **config_changes},
+                                    device=device)
 
 
 def routing_sample(pts, clusters, size, seed):
@@ -271,3 +273,113 @@ def test_binned_engine_on_gpu_matches_cpu(cuda_device, slice_case):
     cd, _ = cpu.serve(q, k=10, nprobes=3, voting_t=8, query_block=16)
     np.testing.assert_allclose(gd, cd, **TOL)
     assert recall_from_ids(pts, q, gi, kth, 10) > 0.97
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["min_dist", "pyramid", "spann", "frequency"])
+@pytest.mark.parametrize("voting_impl", ["exact", "approx", "rescore", "binned"])
+def test_binned_engine_enqueues_a_batch_without_a_host_wait(
+        cuda_device, slice_case, rule, voting_impl):
+    """Routing, grouping, the binned scan and the merge neither read a device
+    value back nor copy a host value over: the first wait of a batch is the
+    read-back of its results. ``serve`` on the card gives the CPU's ids."""
+    pts, q, kth, clusters, rpts, rlbl, jeng = slice_case
+    cpu = port(jeng, voting_impl=voting_impl)
+    gpu = port(jeng, device=cuda_device, voting_impl=voting_impl)
+    args = dict(k=10, nprobes=3, voting_t=8, rule=rule, query_block=16)
+    gd, gi = gpu.serve(q, **args)   # the first call builds the kernels
+    cd, ci = cpu.serve(q, **args)
+    np.testing.assert_array_equal(gi, ci)
+    np.testing.assert_allclose(gd, cd, **TOL)
+    q_dev = torch.as_tensor(q, device=cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [gpu.serve_device(q_dev, **args)]
+        with profiling.recording(profiling.Recorder()):
+            outs.append(gpu.serve_device(q_dev, **args))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for dd, di in outs:
+        np.testing.assert_array_equal(dd.cpu().numpy(), gd)
+        np.testing.assert_array_equal(di.cpu().numpy(), gi)
+
+
+def _group_with_bincount(probes: torch.Tensor, s: int, qb: int):
+    """``_group`` as it was when it counted the shards with ``bincount``
+    (which reads the probes' min and max to the host): the oracle."""
+    m, nprobes = probes.shape
+    dev = probes.device
+    mn = m * nprobes
+    flat_b = probes.reshape(-1).long()
+    sort = torch.argsort(flat_b, stable=True)
+    b_sorted = flat_b[sort]
+    q_sorted = sort // nprobes
+    slot_sorted = sort % nprobes
+    counts = torch.bincount(b_sorted, minlength=s + 1)
+    padded = (counts + qb - 1) // qb * qb
+    cum_padded = torch.cumsum(padded, 0)
+    starts = cum_padded - padded
+    first = torch.searchsorted(b_sorted, torch.arange(s + 1, device=dev),
+                               right=False)
+    rank = torch.arange(mn, device=dev) - first[b_sorted]
+    pos = starts[b_sorted] + rank
+    total = -(-mn // qb) * qb + (s + 1) * qb
+    nb = total // qb
+    pair_q = torch.full((total,), m, dtype=torch.int64, device=dev)
+    pair_q[pos] = q_sorted
+    block_start = torch.arange(nb, device=dev) * qb
+    block_shard = torch.searchsorted(cum_padded, block_start, right=True)
+    return (pos, q_sorted, slot_sorted, pair_q, block_shard.clamp(max=s))
+
+
+def _probe_lists(case: str):
+    """(probes [m, nprobes] int32, number of shards) lists of one kind."""
+    g = torch.Generator().manual_seed(19)
+    if case == "every_shard":      # m * nprobes a multiple of 128 and 1024
+        return [(torch.randint(0, 8, (512, 2), generator=g), 8)]
+    if case == "dummy_shard":      # slots cut short point at shard s
+        p = torch.randint(0, 9, (300, 3), generator=g)
+        return [(p, 8)]
+    if case == "empty_shards":     # the first, last and odd shards unseen
+        p = 2 * torch.randint(1, 7, (256, 4), generator=g)
+        return [(p, 16), (torch.full((64, 1), 3), 8)]
+    if case == "ragged":           # m * nprobes no multiple of qb
+        return [(torch.randint(0, 5, (37, 3), generator=g), 5),
+                (torch.randint(0, 40, (1, 1), generator=g), 40)]
+    if case == "rule_cut":         # a rule's probe lists, cut short
+        q = torch.randn(200, 8, generator=g)
+        rp = torch.randn(64, 8, generator=g)
+        labels = torch.randint(0, 6, (64,), generator=g)
+        out = []
+        for rule in ("spann", "pyramid"):
+            p = _probe_rank(q, rp, labels, (rp ** 2).sum(1), s=6, voting_t=4,
+                            rule=rule, spann_eps=0.1, nprobes=5, metric="l2",
+                            voting_impl="exact")
+            assert (p == 6).any()
+            out.append((p, 6))
+        return out
+    # random lists of every shape and shard count, dummy and empty shards too
+    out = []
+    for _ in range(300):
+        s = int(torch.randint(1, 40, (), generator=g))
+        m = int(torch.randint(1, 300, (), generator=g))
+        nprobes = int(torch.randint(1, min(s, 6) + 1, (), generator=g))
+        hi = int(torch.randint(1, s + 2, (), generator=g))
+        out.append((torch.randint(0, hi, (m, nprobes), generator=g), s))
+    return out
+
+
+@pytest.mark.parametrize("case", ["every_shard", "dummy_shard", "empty_shards",
+                                  "ragged", "rule_cut", "random"])
+@pytest.mark.parametrize("qb", [128, 1024])
+def test_group_matches_the_bincount_grouping(case, qb):
+    """Shard counts taken from the sorted probe list give every field of the
+    grouping bit for bit as ``bincount`` gave it."""
+    for probes, s in _probe_lists(case):
+        probes = probes.to(torch.int32)
+        got = _group(probes, s, qb)
+        want = _group_with_bincount(probes, s, qb)
+        for name, a, b in zip(got._fields, got, want):
+            assert a.dtype == b.dtype, name
+            assert torch.equal(a, b), name
