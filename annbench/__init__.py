@@ -7,7 +7,9 @@
   per-layer readers, the judgement and the result line;
 - ``spec.py``: a cell's files found by name: ``configs/<config>.json``,
   ``traffic/<traffic>.json``, ``limits/<cell>.json``,
-  ``metrics/<metric>.py``;
+  ``metrics/<metric>.py``, and ``engines/<serving>.py``, the program's
+  engine that the configuration names (``resident``: every shard on the
+  card; ``streamed``: the base on the host, a pass a batch);
 - ``datagen/``: frozen copies of the repository's generators and the
   query traffic; ``reference/``: the plain reference; ``judge.py``: the
   numbers that decide ``correct``; ``roofline.py``: peaks and B1's work;

@@ -1,12 +1,13 @@
 """One run of one cell: set-up, the measured window, the per-layer readers,
 the judgement against the plain reference, and the result line.
 
-The program under test is ``gpann_tpu_torch.search.serve.ServingEngine``,
-built from the regenerated base and the shipped partition and routing
-points, and driven through its public ``serve``: a closed loop with one
-batch in flight, the next submitted once the previous batch's ids are on
-the host. The window serves a pool of distinct batches drawn for it alone;
-the warm-up serves another pool, drawn from another seed.
+The program under test is the engine that the configuration's ``serving``
+names (``annbench/engines/<serving>.py``), built from the regenerated base
+and the shipped partition and routing points, and driven through its public
+entry: a closed loop with one batch in flight, the next submitted once the
+previous batch's ids are on the host. The window serves a pool of distinct
+batches drawn for it alone; the warm-up serves another pool, drawn from
+another seed.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from annbench import datagen, judge, reference
-from annbench.spec import ROOT, Cell, quantity, reader
+from annbench.spec import ROOT, Cell, engine_module, quantity, reader
 from annbench.trace import WINDOW_SPAN, Trace, spans
 
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "gpann_tpu")
@@ -46,7 +47,7 @@ class Setup(NamedTuple):
     shard_of: np.ndarray        # [n] shard of each row (shipped partition)
     routing_points: np.ndarray
     routing_labels: np.ndarray
-    engine: object              # the program's ServingEngine
+    engine: object              # what the engine module built
     pool: torch.Tensor          # [P, m, d] the window's batches on the device
 
 
@@ -83,11 +84,10 @@ def pool_batches(traffic: dict, seconds: float) -> int:
 def setup(cell: Cell, seed: int, seconds: float, device: torch.device,
           artifact: Optional[dict] = None) -> Setup:
     """Everything before the window. ``artifact`` replaces the shipped file
-    (tests at small sizes)."""
-    from gpann_tpu_torch.core.partition import partition_to_clusters
-    from gpann_tpu_torch.search.serve import ServingEngine
-
+    (tests at small sizes). The engine is closed here if set-up fails after
+    building it; otherwise the caller closes it."""
     cfg, traffic = cell.config, cell.traffic
+    module = engine_module(cfg["serving"])
     n, d = cfg["num_points"], cfg["dim"]
     t = time.perf_counter()
     base, check_q = datagen.base_and_check_queries(
@@ -103,13 +103,25 @@ def setup(cell: Cell, seed: int, seconds: float, device: torch.device,
     log(f"base matches the shipped gt_dists ({cfg['check_slice']} queries, "
         f"widest relative gap {gap:.3e})")
     shard_of = np.asarray(artifact["assign"])
+    routing_points = np.asarray(artifact["routing_points"])
+    routing_labels = np.asarray(artifact["routing_labels"])
     t = time.perf_counter()
-    engine = ServingEngine(
-        base, partition_to_clusters(shard_of.astype(np.int32),
-                                    cfg["num_shards"]),
-        artifact["routing_points"], artifact["routing_labels"],
-        metric=cfg["metric"], **cfg["engine"], device=device)
-    log(f"engine built in {time.perf_counter() - t:.3f} s")
+    engine = module.build(base, shard_of, routing_points, routing_labels,
+                          cfg, device)
+    log(f"engine {cfg['serving']!r} built in {time.perf_counter() - t:.3f} s")
+    try:
+        pool = _warm_up(engine, cfg, traffic, seed, seconds, device)
+    except BaseException:
+        module.close(engine)
+        raise
+    return Setup(base, shard_of, routing_points, routing_labels, engine,
+                 pool)
+
+
+def _warm_up(engine, cfg: dict, traffic: dict, seed: int, seconds: float,
+             device: torch.device) -> torch.Tensor:
+    """Draws the window's pool, serves the warm-up, returns the pool."""
+    d = cfg["dim"]
     num = pool_batches(traffic, seconds)
     pool = datagen.device_batches(cfg["data"], d, cfg["base_seed"], num,
                                   traffic["batch"], seed, device)
@@ -127,15 +139,11 @@ def setup(cell: Cell, seed: int, seconds: float, device: torch.device,
     warm = closed_loop(engine, cfg, warm_pool, traffic["warmup_seconds"])
     log(f"warmed up with {len(warm.ids)} batches in "
         f"{time.perf_counter() - t:.3f} s")
-    del warm_pool, warm
-    return Setup(base, shard_of, np.asarray(artifact["routing_points"]),
-                 np.asarray(artifact["routing_labels"]), engine, pool)
+    return pool
 
 
 def serve(engine, cfg: dict, queries: torch.Tensor):
-    return engine.serve(queries, cfg["k"], cfg["nprobes"],
-                        voting_t=cfg["voting_t"], rule=cfg["rule"],
-                        query_block=cfg["query_block"])
+    return engine_module(cfg["serving"]).serve(engine, cfg, queries)
 
 
 def closed_loop(engine, cfg: dict, pool: torch.Tensor,
@@ -239,20 +247,19 @@ class Ctx(NamedTuple):
     trace: Optional[Trace]
     device: torch.device
     kind: str
-    grouping: Callable          # pool index -> (live_q, sizes, row_off) numpy
+    grouping: Callable          # pool index -> (live_q, sizes, row_off) numpy,
+                                # or None where the engine scans no blocks
 
 
 def grouping_of(engine, cfg: dict, pool: torch.Tensor) -> Callable:
-    """Memoised ``ServingEngine.scan_inputs`` counts of a pool batch."""
-    memo: Dict[int, tuple] = {}
+    """Memoised grouping of a pool batch (the engine module's
+    ``grouping``)."""
+    memo: Dict[int, Optional[tuple]] = {}
+    module = engine_module(cfg["serving"])
 
     def get(i: int):
         if i not in memo:
-            _, row_off, sizes, live_q = engine.scan_inputs(
-                pool[i], cfg["nprobes"], voting_t=cfg["voting_t"],
-                rule=cfg["rule"], query_block=cfg["query_block"])
-            memo[i] = (live_q.cpu().numpy(), sizes.cpu().numpy(),
-                       row_off.cpu().numpy())
+            memo[i] = module.grouping(engine, cfg, pool[i])
         return memo[i]
     return get
 
@@ -307,19 +314,11 @@ def window_metrics(win: Window, m: int) -> Dict[str, float]:
                 np.asarray(win.latencies_s), 95)) * 1e3}
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
-             device, t0: float, artifact: Optional[dict] = None,
-             limits: Optional[dict] = None) -> dict:
-    """One run; returns the result line's dict (``checks`` last).
-
-    ``t0`` is the ``time.perf_counter()`` of the process's start. ``device``
-    is the card in every run of the benchmark's command; the tests pass the
-    CPU with a small ``artifact`` and their ``limits``."""
-    device = torch.device(device)
+def _measure(cell: Cell, s: Setup, seconds: float, trace: bool,
+             device: torch.device):
+    """The window, and with ``trace`` the per-layer readers and the
+    breakdown: ``(window, device info, metrics, breakdown)``."""
     cfg = cell.config
-    limits = cell.limits if limits is None else limits
-    s = setup(cell, seed, seconds, device, artifact)
-    setup_s = time.perf_counter() - t0
     if trace:
         win, tr_obj = traced_window(s.engine, cfg, s.pool, seconds, device)
     else:
@@ -332,11 +331,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         f"batches of {m} in {win.seconds:.6f} s, "
         f"{win.seconds / len(win.ids) * 1e3:.4f} ms a batch, 95th "
         f"percentile {window_metrics(win, m)['batch_p95_ms']:.4f} ms")
-    repeats = reused(win, s.pool)
-    if repeats:
-        log(f"the program outran the query pool: {repeats} of "
-            f"{len(win.ids)} batches served again; raise the traffic's "
-            f"pool_batches_per_s")
     dev_info = {"platform": "gpu" if device.type == "cuda" else device.type,
                 "kind": kind, "count": 1, "memory_peak_bytes": int(peak)}
 
@@ -360,6 +354,33 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         breakdown = {"device_ops": tr_obj.top_device_ops(),
                      "idle_gaps": labelled.idle_gaps()}
         del ctx, tr_obj, short, labelled
+    return win, dev_info, metrics, breakdown
+
+
+def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
+             device, t0: float, artifact: Optional[dict] = None,
+             limits: Optional[dict] = None) -> dict:
+    """One run; returns the result line's dict (``checks`` last).
+
+    ``t0`` is the ``time.perf_counter()`` of the process's start. ``device``
+    is the card in every run of the benchmark's command; the tests pass the
+    CPU with a small ``artifact`` and their ``limits``."""
+    device = torch.device(device)
+    cfg = cell.config
+    limits = cell.limits if limits is None else limits
+    s = setup(cell, seed, seconds, device, artifact)
+    setup_s = time.perf_counter() - t0
+    try:
+        win, dev_info, metrics, breakdown = _measure(cell, s, seconds, trace,
+                                                     device)
+    finally:
+        engine_module(cfg["serving"]).close(s.engine)
+    m = cell.traffic["batch"]
+    repeats = reused(win, s.pool)
+    if repeats:
+        log(f"the program outran the query pool: {repeats} of "
+            f"{len(win.ids)} batches served again; raise the traffic's "
+            f"pool_batches_per_s")
 
     sample = draw_sample(win, s.pool, cell.traffic["judged_queries"], seed)
     invalid = judge.invalid_lists(win.ids, cfg["num_points"])

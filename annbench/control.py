@@ -31,7 +31,7 @@ from annbench import datagen
 from annbench.cell import (closed_loop, compare, draw_sample, log, setup,
                            truth)
 from annbench.judge import invalid_lists
-from annbench.spec import Cell, load_cell
+from annbench.spec import Cell, engine_module, load_cell
 
 NUMBERS = ("routed_miss", "dist_err", "invalid_lists")
 
@@ -42,10 +42,20 @@ def readings(cell: Cell, seeds: List[int], control_seeds: List[int],
     """Program readings on ``seeds``, control readings on ``control_seeds``
     (each also in ``seeds``); returns the summary (module docstring)."""
     device = torch.device(device)
-    cfg, traffic = cell.config, cell.traffic
     s = setup(cell, seeds[0], seconds, device, artifact)
     num = s.pool.shape[0]
     s = s._replace(pool=None)
+    try:
+        return _readings(cell, s, num, seeds, control_seeds, seconds, device,
+                         emit)
+    finally:
+        engine_module(cell.config["serving"]).close(s.engine)
+
+
+def _readings(cell: Cell, s, num: int, seeds: List[int],
+              control_seeds: List[int], seconds: float, device,
+              emit) -> Dict[str, dict]:
+    cfg, traffic = cell.config, cell.traffic
     tr = truth(s, device)
     program: List[dict] = []
     control: List[dict] = []

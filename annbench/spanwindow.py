@@ -10,8 +10,9 @@ profiler's events; the card's kernels, copies and sets are moved onto that
 clock batch by batch (:func:`align`), so spans and card work lie on one
 timeline. The window runs from the first ``serve.batch`` start to the last
 ``serve.readback`` end. It is served once a process, the first time a
-reader asks, and kept on the engine; a program without a recorder, or a run
-without a CUDA card, gives no window and its readers nothing.
+reader asks, and kept on the engine; a program without a recorder, an
+engine that records no batch (the streamed one), or a run without a CUDA
+card, gives no window and its readers nothing.
 
 Each run logs the window's ms a batch, its idle seconds by the innermost
 program span open at each idle gap's middle (``OUTSIDE`` where none is), and

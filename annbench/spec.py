@@ -4,7 +4,9 @@
 metrics with the cells that report them. The files behind the names:
 
 - ``annbench/configs/<config>.json``: the deployment (data, index, engine,
-  routing);
+  routing); its ``serving`` names the engine module;
+- ``annbench/engines/<serving>.py``: how the harness builds, serves through
+  and closes one of the program's engines;
 - ``annbench/traffic/<traffic>.json``: the mix (loop, batch, query pool);
 - ``annbench/limits/<cell>.json``: the limit of each number that decides
   ``correct``;
@@ -18,6 +20,8 @@ one reads ``<quantity>``, a per-layer one ``metrics/<quantity>.py`` unless
 
 from __future__ import annotations
 
+import functools
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -53,9 +57,11 @@ def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json") -> Cell:
         raise KeyError(f"no workload {name!r} in {benchmark.name}; "
                        f"known: {sorted(cells)}")
     w = cells[name]
+    config = _load_json(HERE / "configs" / f"{w['config']}.json")
+    engine_module(config["serving"])
     return Cell(
         name=name,
-        config=_load_json(HERE / "configs" / f"{w['config']}.json"),
+        config=config,
         traffic=_load_json(HERE / "traffic" / f"{w['traffic']}.json"),
         limits=_load_json(HERE / "limits" / f"{name}.json")["limits"],
         chips=int(w["chips"]),
@@ -82,3 +88,13 @@ def reader(metric: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+@functools.lru_cache(maxsize=None)
+def engine_module(serving: str):
+    """The module ``annbench/engines/<serving>.py``: ``build``, ``serve``,
+    ``grouping`` and ``close`` of one of the program's engines."""
+    path = HERE / "engines" / f"{serving}.py"
+    if not path.exists():
+        raise FileNotFoundError(f"no engine {serving!r} at {path}")
+    return importlib.import_module(f"annbench.engines.{serving}")
