@@ -22,6 +22,17 @@ programs: a block is uploaded with its real rows (the bin-top-2 kernel masks
 by ``n_valid`` and covers the last partial 128-row bin itself) and the
 queries of a shard go up as they are. ``stats["bytes_uploaded"]`` counts the
 bytes really copied.
+
+With a recorder installed (:func:`gpann_tpu_torch.core.profiling.recording`)
+a pass records the spans ``stream.pass`` (one batch id a pass) and, inside
+it, ``stream.route``, per probed shard ``stream.gather`` (the host read of
+its rows), per block ``stream.upload`` (the copy to the device and the wait
+for it) and ``stream.scan`` (the scan, phase 2 and the read-back), and
+``stream.merge``; and the counters ``stream.bytes_read``,
+``stream.bytes_uploaded`` (``stats["bytes_uploaded"]``),
+``stream.blocks_binned``, ``stream.blocks_exact`` and
+``stream.b2_pair_rows`` (query rows times real rows of each binned block).
+Without one, each call site only reads the module global.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from gpann_tpu_torch.core import profiling
 from gpann_tpu_torch.core.distances import (
     Metric, assign_closest, to_device, topk_neighbors)
 from gpann_tpu_torch.core.partition import Clusters
@@ -421,6 +433,9 @@ class StreamedShardEngine:
         ``device_scan_ms``."""
         size = len(rows)
         on_cuda = self.device.type == "cuda"
+        rec = profiling.RECORDER
+        if rec is not None:
+            step = rec.begin("stream.upload", self.device)
         t0 = time.perf_counter()
         # the source dtype goes up: byte bases widen on the device
         blk = to_device(rows, self.device)
@@ -431,17 +446,26 @@ class StreamedShardEngine:
             ev0.record()
         stats["upload_s"] += time.perf_counter() - t0
         stats["bytes_uploaded"] += rows.nbytes
+        if rec is not None:
+            step = rec.next(step, "stream.scan", self.device)
         perm = None
         if self.takes_binned(size, k):
+            if rec is not None:
+                rec.count("stream.blocks_binned", 1)
+                rec.count("stream.b2_pair_rows", q_block.shape[0] * size)
             if grouped:
                 perm = self.scan_permutation(size)
                 blk = blk[perm.to(self.device)]
             d, pos = fused_topk(q_block, blk, size, k, self.metric)
         else:
+            if rec is not None:
+                rec.count("stream.blocks_exact", 1)
             d, pos = _masked_rescored_topk(q_block, blk, size, k, self.metric)
         if on_cuda:
             ev1.record()
         dn, pn = d.cpu().numpy(), pos.cpu().numpy()
+        if rec is not None:
+            rec.end(step, self.device)
         if on_cuda:
             stats["device_scan_ms"] += ev0.elapsed_time(ev1)
         stats["blocks_scanned"] += 1
@@ -536,14 +560,21 @@ class StreamedShardEngine:
         scans alone by CUDA events, a grouped block's permuting gather
         included; 0 on the CPU), ``shards_scanned``,
         ``blocks_scanned`` (more than the shards when some were sliced) and
-        ``bytes_uploaded``.
+        ``bytes_uploaded``. Spans and counters: the module docstring.
         """
+        rec = profiling.RECORDER
+        if rec is not None:
+            pass_span = rec.begin("stream.pass", self.device, root=True)
         queries = np.asarray(queries, np.float32)
         m = queries.shape[0]
         t_route = time.perf_counter()
         if probes is None:
+            if rec is not None:
+                step = rec.begin("stream.route", self.device)
             probes = self.probe_order(queries, nprobes, voting_t, rule,
                                       spann_eps)
+            if rec is not None:
+                rec.end(step, self.device)
         stats = {"route_s": time.perf_counter() - t_route, "gather_s": 0.0,
                  "scan_s": 0.0, "upload_s": 0.0, "device_scan_ms": 0.0,
                  "shards_scanned": 0, "blocks_scanned": 0,
@@ -566,8 +597,13 @@ class StreamedShardEngine:
             if len(qidx) == 0:
                 continue
             t0 = time.perf_counter()
+            if rec is not None:
+                step = rec.begin("stream.gather", self.device)
             rows, members, grouped = self.shard_block(
                 b, queries[qidx], sub_nprobe if use_subs else None)
+            if rec is not None:
+                rec.end(step, self.device)
+                rec.count("stream.bytes_read", rows.nbytes)
             if len(members) == 0:
                 continue
             stats["gather_s"] += time.perf_counter() - t0
@@ -592,16 +628,23 @@ class StreamedShardEngine:
             if verbose:
                 print(f"# shard {b}: {len(members)} pts, {mq} queries "
                       f"({stats['scan_s']:.1f}s scan)", flush=True)
+        if rec is not None:
+            rec.count("stream.bytes_uploaded", stats["bytes_uploaded"])
         if return_tables:
+            if rec is not None:
+                rec.end(pass_span, self.device)
             return tab_d, tab_i, stats
+        if rec is not None:
+            step = rec.begin("stream.merge", self.device)
         flat_d = tab_d.reshape(m, nprobes * k)
         flat_i = tab_i.reshape(m, nprobes * k)
         sel = np.argsort(flat_d, axis=1, kind="stable")[:, :k]
-        return (
-            np.take_along_axis(flat_d, sel, axis=1),
-            np.take_along_axis(flat_i, sel, axis=1),
-            stats,
-        )
+        out_d = np.take_along_axis(flat_d, sel, axis=1)
+        out_i = np.take_along_axis(flat_i, sel, axis=1)
+        if rec is not None:
+            rec.end(step, self.device)
+            rec.end(pass_span, self.device)
+        return out_d, out_i, stats
 
     def recall_curve(
         self,
