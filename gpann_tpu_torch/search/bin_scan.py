@@ -55,7 +55,7 @@ def scan_order(ids) -> np.ndarray:
     Id order is independent of both. (A sub-cluster-major store keeps each
     sub-cluster contiguous on purpose, for pruned reads; its blocks are
     permuted when they are scanned instead, see
-    ``StreamedShardEngine._scan_block``.)
+    ``StreamedShardEngine._scan``.)
     """
     return np.argsort(np.asarray(ids), kind="stable")
 

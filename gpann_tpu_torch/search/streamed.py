@@ -23,22 +23,41 @@ by ``n_valid`` and covers the last partial 128-row bin itself) and the
 queries of a shard go up as they are. ``stats["bytes_uploaded"]`` counts the
 bytes really copied.
 
+Every block goes through a ring of two staging slots (:class:`_Staging`),
+made at first use and kept across passes: the host read copies a block's
+rows straight into a slot's host buffer (no fresh array a block), the upload
+copies that buffer into the slot's device block, and the scan reads the
+device block. On a CUDA device the host buffers are page-locked and the
+upload is an asynchronous copy on a copy stream that the compute stream
+waits on, so the host reads block ``j + 1`` while block ``j`` is copied and
+scanned; a block's results come back to the host asynchronously and are
+taken two blocks later. Before refilling a host buffer the host waits for the
+copy that last read it; a device block is overwritten only after the scan
+that last read it. On the CPU the host buffer is the block and the upload is
+the identity: the same path, run in order. The rows, their order, the blocks
+and the merge are those of a serial pass, so the answers are too.
+
 With a recorder installed (:func:`gpann_tpu_torch.core.profiling.recording`)
 a pass records the spans ``stream.pass`` (one batch id a pass) and, inside
-it, ``stream.route``, per probed shard ``stream.gather`` (the host read of
-its rows), per block ``stream.upload`` (the copy to the device and the wait
-for it) and ``stream.scan`` (the scan, phase 2 and the read-back), and
-``stream.merge``; and the counters ``stream.bytes_read``,
-``stream.bytes_uploaded`` (``stats["bytes_uploaded"]``),
-``stream.blocks_binned``, ``stream.blocks_exact`` and
-``stream.b2_pair_rows`` (query rows times real rows of each binned block).
-Without one, each call site only reads the module global.
+it, ``stream.route``, then per block ``stream.gather`` (the host read into
+the staging buffer; a shard's first block also looks up what to read),
+``stream.upload`` (the copy's enqueue and any wait for the other host
+buffer to come free) and ``stream.scan`` (from the compute stream's wait on
+the copy: the scan, phase 2 and the enqueue of the results' copy to the
+host), and ``stream.merge``; the spans are disjoint in host time. Counters:
+``stream.bytes_read``, ``stream.bytes_uploaded``
+(``stats["bytes_uploaded"]``), ``stream.blocks_binned``,
+``stream.blocks_exact``, ``stream.b2_pair_rows`` (query rows times real rows
+of each binned block), ``stream.blocks_staged`` (blocks through the staging
+ring) and ``stream.staging_waits`` (refills whose host buffer's copy was
+still in flight). Without one, each call site only reads the module global.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Tuple
+from collections import deque
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,12 +110,125 @@ def _chosen_subclusters(qv: np.ndarray, cents: np.ndarray, t: int,
                                   minlength=dm.shape[1]) > 0)[0]
 
 
+def _copy_runs(src: np.ndarray, runs: List[Tuple[int, int]], out: np.ndarray,
+               lo: int, hi: int) -> None:
+    """Rows ``[lo, hi)`` of the concatenation of ``src``'s row ranges
+    ``runs`` into ``out`` [hi - lo, d]."""
+    at = 0
+    for s, e in runs:
+        a, z = max(lo, at), min(hi, at + e - s)
+        if a < z:
+            np.copyto(out[a - lo : z - lo], src[s + a - at : s + z - at])
+        at += e - s
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host. From a CUDA device the copy goes into page-locked
+    memory and is only enqueued: read it after an event recorded behind it
+    on the current stream has completed."""
+    if t.device.type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+class _Staging:
+    """The ring of two staging slots of a streamed pass: slot ``i`` is the
+    host buffer ``host[i]`` (numpy view ``views[i]``) that the read fills
+    and the device block ``blocks[i]`` that the upload fills from it, each
+    ``rows`` x ``d`` of the source dtype. On a CUDA device the host buffers
+    are page-locked and :meth:`upload` is an asynchronous copy on a copy
+    stream; on the CPU the host buffer is the block and the upload is the
+    identity.
+
+    The ring's two conditions: a host buffer is refilled only after the copy
+    that last read it has ended (:meth:`wait_free`), and a device block is
+    overwritten only after the scan that last read it (:meth:`upload` makes
+    the copy stream wait on the event given to :meth:`scanned`)."""
+
+    def __init__(self, rows: int, d: int, dtype: np.dtype,
+                 device: torch.device) -> None:
+        self.rows = rows
+        self.cuda = device.type == "cuda"
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        self.host = [torch.empty((rows, d), dtype=tdtype,
+                                 pin_memory=self.cuda) for _ in range(2)]
+        self.views = [h.numpy() for h in self.host]
+        self.blocks = self.host
+        if self.cuda:
+            self.device = device
+            self.stream = torch.cuda.Stream(device)
+            self.blocks = [torch.empty((rows, d), dtype=tdtype, device=device)
+                           for _ in range(2)]
+            for blk in self.blocks:     # freed only after the copies on it
+                blk.record_stream(self.stream)
+        self._copied = [None, None]     # event after the copy from host[i]
+        self._scanned = [None, None]    # event after the scan of blocks[i]
+
+    def device_bytes(self) -> int:
+        return sum(b.nbytes for b in self.blocks) if self.cuda else 0
+
+    def upload(self, i: int, n: int) -> torch.Tensor:
+        """Enqueue the copy of slot ``i``'s first ``n`` host rows into its
+        device block; returns the block's rows, which the compute stream
+        may read after :meth:`ready`."""
+        if self.cuda:
+            with torch.cuda.stream(self.stream):
+                if self._scanned[i] is not None:
+                    self.stream.wait_event(self._scanned[i])
+                self.blocks[i][:n].copy_(self.host[i][:n], non_blocking=True)
+                self._copied[i] = torch.cuda.Event()
+                self._copied[i].record(self.stream)
+        return self.blocks[i][:n]
+
+    def ready(self, i: int) -> None:
+        """Make the current stream wait for slot ``i``'s copy."""
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_event(self._copied[i])
+
+    def scanned(self, i: int, event) -> None:
+        """``event`` follows the last read of slot ``i``'s device block."""
+        self._scanned[i] = event
+
+    def wait_free(self, i: int) -> bool:
+        """Wait until host buffer ``i`` may be refilled; True if its copy
+        was still in flight."""
+        ev = self._copied[i]
+        if ev is None or ev.query():
+            return False
+        ev.synchronize()
+        return True
+
+
+class _ShardScan:
+    """A probed shard whose blocks are in flight: its probing query rows
+    ``qidx`` at probe slots ``slot``, its ids, and each block's host
+    results as they are taken."""
+
+    def __init__(self, b: int, qidx: np.ndarray, slot: np.ndarray,
+                 members: np.ndarray, blocks: int) -> None:
+        self.b, self.qidx, self.slot, self.members = b, qidx, slot, members
+        self.blocks = blocks
+        self.parts: List[Tuple[np.ndarray, np.ndarray]] = []
+
+
+class _Inflight(NamedTuple):
+    """One scanned block whose results are on their way to the host."""
+
+    shard: _ShardScan
+    lo: int                         # the block's first row in its shard
+    dists: torch.Tensor             # [mq, k], host
+    pos: torch.Tensor               # [mq, k] block-local positions, host
+    perm: Optional[torch.Tensor]    # the scan's row permutation (grouped)
+    events: Optional[tuple]         # CUDA: scan start, scan end, on the host
+
+
 class StreamedShardEngine:
     """Routed search over a host-resident (memmap) base, one shard at a time.
 
     Parameters mirror :class:`ServingEngine`; ``points`` may be a
-    ``np.memmap``: only one shard's rows are ever materialized on the host,
-    and only those rows plus the router live on the device.
+    ``np.memmap``: only the two staging slots' rows are ever materialized on
+    the host, and only those rows plus the router live on the device.
     """
 
     def __init__(
@@ -142,12 +274,14 @@ class StreamedShardEngine:
             self.num_shards = store.num_shards
             self.clusters = None
             self.dim = store.d
+            self.dtype = store.dtype
         else:
             self.num_shards = len(clusters)
             self.clusters: List[np.ndarray] = [
                 np.asarray(c, np.int64)[scan_order(c)] for c in clusters
             ]
             self.dim = points.shape[1]
+            self.dtype = np.dtype(points.dtype)
         rp = np.asarray(routing_points, np.float32)
         self.router_points = torch.tensor(rp, device=self.device)
         self.router_labels = torch.tensor(
@@ -170,6 +304,7 @@ class StreamedShardEngine:
                 self.sub_slices, self.sub_centroids = side
         # block size -> the fixed row permutation of a grouped block's scan
         self._perms: dict = {}
+        self._stage: Optional[_Staging] = None   # made by the first pass
 
     # -- in-shard sub-clusters (streamed-serving pruning) ----------------------
     def _subcluster_assign(self, rows, target_sub_size: int,
@@ -346,55 +481,42 @@ class StreamedShardEngine:
             return np.empty((0, nprobes), np.int32)
         return np.concatenate(out, axis=0)
 
-    # -- one shard scan --------------------------------------------------------
+    # -- the staged shard scan -------------------------------------------------
     def _scan_row_limit(self, mq: int, itemsize: int,
                         grouped: bool = False) -> Optional[int]:
-        """Most rows of one device block, or None for no limit.
+        """Most rows of one device block, or None for no limit; read once a
+        pass.
 
         ``max_scan_rows`` when the engine was given one. Otherwise, on CUDA,
         what fits ``_FREE_SHARE`` of the device's free memory at this
-        moment: a row costs its raw bytes, its f32 copy when the base is
-        bytes, one more f32 copy when the block is ``grouped`` (the permuted
-        rows, see :meth:`_scan_block`), and its share of the two [mq, 2 *
-        rows / 128] summary arrays (f32 distances and int32 ids). Shards
-        above the limit scan as consecutive row slices merged on the
-        host."""
+        moment, the staging blocks the engine keeps counted as free: a row
+        costs its raw bytes twice (the ring's two device blocks), its f32
+        copy when the base is bytes, one more f32 copy when the block is
+        ``grouped`` (the permuted rows, see :meth:`_scan`), and its share of
+        the two [mq, 2 * rows / 128] summary arrays (f32 distances and int32
+        ids), ``mq`` the most query rows of a probed shard. Shards above the
+        limit scan as consecutive row slices merged on the host."""
         if self.max_scan_rows is not None:
             return self.max_scan_rows
         if self.device.type != "cuda":
             return None
         free, _ = torch.cuda.mem_get_info(self.device)
-        per_row = self.dim * itemsize + mq * 2 * 8 / BIN
+        if self._stage is not None:
+            free += self._stage.device_bytes()
+        per_row = 2 * self.dim * itemsize + mq * 2 * 8 / BIN
         if itemsize != 4:
             per_row += self.dim * 4
         if grouped:
             per_row += self.dim * 4
         return max(int(_FREE_SHARE * free / per_row) // BIN * BIN, BIN)
 
-    def _scan_shard(
-        self, q_block: torch.Tensor, shard_rows: np.ndarray, k: int,
-        stats: dict, grouped: bool = False,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k of each query row within one shard, slicing shards larger
-        than the row limit into consecutive blocks whose per-block top-k
-        merge on the host (positions stay shard-local). ``grouped``: the
-        rows lie sub-cluster by sub-cluster (see :meth:`_scan_block`)."""
-        size = len(shard_rows)
-        limit = self._scan_row_limit(q_block.shape[0],
-                                     shard_rows.dtype.itemsize, grouped)
-        if limit is None or size <= limit:
-            return self._scan_block(q_block, shard_rows, k, stats, grouped)
-        parts_d, parts_p = [], []
-        for lo in range(0, size, limit):
-            d, p = self._scan_block(q_block, shard_rows[lo : lo + limit], k,
-                                    stats, grouped)
-            parts_d.append(d)
-            parts_p.append(p.astype(np.int64) + lo)
-        dcat = np.concatenate(parts_d, axis=1)
-        pcat = np.concatenate(parts_p, axis=1)
-        sel = np.argsort(dcat, axis=1, kind="stable")[:, :k]
-        return (np.take_along_axis(dcat, sel, axis=1),
-                np.take_along_axis(pcat, sel, axis=1))
+    def _staging(self, rows: int) -> _Staging:
+        """The ring, made at first use and kept across passes; made anew
+        only when a pass uploads a larger block."""
+        if self._stage is None or self._stage.rows < rows:
+            self._stage = None      # the old ring goes before the new one
+            self._stage = _Staging(rows, self.dim, self.dtype, self.device)
+        return self._stage
 
     def takes_binned(self, size: int, k: int) -> bool:
         """Whether a block of ``size`` rows takes the binned scan:
@@ -405,49 +527,34 @@ class StreamedShardEngine:
 
     def scan_permutation(self, size: int) -> torch.Tensor:
         """The fixed row permutation (on the host) in which a grouped block
-        of ``size`` rows is scanned (see :meth:`_scan_block`): seeded by the
+        of ``size`` rows is scanned (see :meth:`_scan`): seeded by the
         size, made once a size."""
         if size not in self._perms:
             self._perms[size] = torch.from_numpy(
                 np.random.default_rng(size).permutation(size))
         return self._perms[size]
 
-    def _scan_block(
-        self, q_block: torch.Tensor, rows: np.ndarray, k: int, stats: dict,
-        grouped: bool = False,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k ``(dists [mq, k], block-local positions [mq, k])`` of each
-        query row within one device block of ``len(rows)`` real rows.
+    def _scan(self, q_block: torch.Tensor, blk: torch.Tensor, k: int,
+              grouped: bool):
+        """Enqueue the top-k of each query row within one device block of
+        ``len(blk)`` real rows: ``(dists [mq, k], block-local positions
+        [mq, k], perm)``, on the device.
 
         ``grouped``: the block holds sub-clusters side by side (a
         sub-cluster-major store, or the union of chosen sub-clusters). Near
         neighbours then share 128-row bins, of which the binned scan keeps
         two rows each, so the binned scan runs over the block's rows in a
-        fixed permutation (seeded by the block's size, made once a size)
-        that scatters each sub-cluster over the bins; positions are mapped
-        back through it. (The store keeps its sub-cluster order on purpose,
-        for pruned reads, so the id order of
+        fixed permutation ``perm`` (seeded by the block's size, made once a
+        size) that scatters each sub-cluster over the bins; positions are
+        mapped back through it when taken. (The store keeps its sub-cluster
+        order on purpose, for pruned reads, so the id order of
         :func:`~gpann_tpu_torch.search.bin_scan.scan_order` is not used
         here.) The permuting gather is a second f32 copy of the block on
         the device (budgeted by :meth:`_scan_row_limit`) and falls inside
         ``device_scan_ms``."""
-        size = len(rows)
-        on_cuda = self.device.type == "cuda"
+        size = len(blk)
         rec = profiling.RECORDER
-        if rec is not None:
-            step = rec.begin("stream.upload", self.device)
-        t0 = time.perf_counter()
-        # the source dtype goes up: byte bases widen on the device
-        blk = to_device(rows, self.device)
-        if on_cuda:
-            torch.cuda.synchronize(self.device)
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-        stats["upload_s"] += time.perf_counter() - t0
-        stats["bytes_uploaded"] += rows.nbytes
-        if rec is not None:
-            step = rec.next(step, "stream.scan", self.device)
+        blk = blk.float()  # byte blocks widen on the device
         perm = None
         if self.takes_binned(size, k):
             if rec is not None:
@@ -461,37 +568,23 @@ class StreamedShardEngine:
             if rec is not None:
                 rec.count("stream.blocks_exact", 1)
             d, pos = _masked_rescored_topk(q_block, blk, size, k, self.metric)
-        if on_cuda:
-            ev1.record()
-        dn, pn = d.cpu().numpy(), pos.cpu().numpy()
-        if rec is not None:
-            rec.end(step, self.device)
-        if on_cuda:
-            stats["device_scan_ms"] += ev0.elapsed_time(ev1)
-        stats["blocks_scanned"] += 1
-        # inf-distance fillers may carry positions past the real rows:
-        # clamp them so the callers' members[pos] stays in bounds
-        live = np.isfinite(dn)
-        pn = np.where(live, pn, 0)
-        if perm is not None:
-            pn = np.where(live, perm.numpy()[pn], 0)
-        return dn, pn
+        return d, pos, perm
 
-    def shard_block(self, b: int, qv: np.ndarray,
-                    sub_nprobe: Optional[int] = None):
-        """What a pass reads of probed shard ``b`` for its probing queries
-        ``qv``: ``(rows, members, grouped)``, the host rows in the order of
-        the upload, their ids, and whether the rows lie sub-cluster by
-        sub-cluster (scanned in :meth:`scan_permutation`'s order, see
-        :meth:`_scan_block`). ``sub_nprobe``: read only the union of each
-        query's ``sub_nprobe`` closest sub-clusters (None: the whole
-        shard)."""
+    def _reader(self, b: int, qv: np.ndarray, sub_nprobe: Optional[int]):
+        """How a pass reads probed shard ``b`` for its probing queries
+        ``qv``: ``(fill, members, grouped)``. ``fill(out, lo, hi)`` copies
+        the rows ``[lo, hi)`` of the shard's read, in the order of the
+        upload, into ``out`` [hi - lo, d] of the source dtype; ``members``
+        are their ids; ``grouped``: the rows lie sub-cluster by sub-cluster
+        (scanned in :meth:`scan_permutation`'s order, see :meth:`_scan`).
+        ``sub_nprobe``: read only the union of each query's ``sub_nprobe``
+        closest sub-clusters (None: the whole shard)."""
         if self.store is not None:
             members = self.store.shard_ids(b)
         else:
             members = self.clusters[b]
         if len(members) == 0:
-            return np.empty((0, self.dim)), members, False
+            return None, members, False
         # a sub-cluster-major store holds sub-clusters side by side in
         # every read of its shards, pruned or whole
         grouped = self.store is not None and self.sub_slices is not None
@@ -506,29 +599,197 @@ class StreamedShardEngine:
                 chosen = _chosen_subclusters(
                     qv, self.sub_centroids[b], sub_nprobe, self.metric)
                 off = self.sub_slices[b]
-                rows = np.concatenate(
-                    [srows[off[c]: off[c + 1]] for c in chosen])
+                runs = [(int(off[c]), int(off[c + 1])) for c in chosen]
                 members = np.concatenate(
-                    [np.asarray(members[off[c]: off[c + 1]])
-                     for c in chosen]).astype(np.int64)
-            else:
-                # shard-major layout: ONE contiguous read, the
-                # reference's streaming read of owned ranges
-                # (distributed_query_benchmark.h:48-84)
-                rows = np.array(srows)
-        elif sub_nprobe is not None and len(self.sub_members[b]) > sub_nprobe:
+                    [np.asarray(members[s:e]) for s, e in runs]
+                ).astype(np.int64)
+                return (lambda out, lo, hi:
+                        _copy_runs(srows, runs, out, lo, hi)), members, grouped
+            # shard-major layout: ONE contiguous read, the reference's
+            # streaming read of owned ranges
+            # (distributed_query_benchmark.h:48-84)
+            return (lambda out, lo, hi: np.copyto(out, srows[lo:hi])), \
+                members, grouped
+        if sub_nprobe is not None and len(self.sub_members[b]) > sub_nprobe:
             # in-shard pruning: gather and upload ONLY the union of each
             # probing query's sub_nprobe closest sub-clusters
             chosen = _chosen_subclusters(
                 qv, self.sub_centroids[b], sub_nprobe, self.metric)
             members = np.concatenate(
                 [self.sub_members[b][c] for c in chosen])
-            rows = np.asarray(self.points[members])
             grouped = True
-        else:
-            # memmap fancy-index: reads only this shard's rows
-            rows = np.asarray(self.points[members])
+        # fancy-indexing reads only this shard's rows
+        points = self.points
+        if not isinstance(points, np.ndarray):
+            return (lambda out, lo, hi:
+                    np.copyto(out, points[members[lo:hi]])), members, grouped
+        if not 0 <= members.min() <= members.max() < len(points):
+            raise IndexError(f"shard {b} holds ids outside "
+                             f"[0, {len(points)})")
+        # "clip": no buffered copy (the ids were checked above)
+        return (lambda out, lo, hi: np.take(points, members[lo:hi], axis=0,
+                                            out=out, mode="clip")), \
+            members, grouped
+
+    def shard_block(self, b: int, qv: np.ndarray,
+                    sub_nprobe: Optional[int] = None):
+        """What a pass reads of probed shard ``b`` for its probing queries
+        ``qv``: ``(rows, members, grouped)``, the host rows in the order of
+        the upload, their ids, and whether the rows lie sub-cluster by
+        sub-cluster (scanned in :meth:`scan_permutation`'s order, see
+        :meth:`_scan`). ``sub_nprobe``: read only the union of each
+        query's ``sub_nprobe`` closest sub-clusters (None: the whole
+        shard). A pass reads the same rows, block by block, into its
+        staging buffers."""
+        fill, members, grouped = self._reader(b, qv, sub_nprobe)
+        rows = np.empty((len(members), self.dim), self.dtype)
+        if fill is not None:
+            fill(rows, 0, len(members))
         return rows, members, grouped
+
+    def _take(self, blk: _Inflight, k: int, stats: dict, tab_d: np.ndarray,
+              tab_i: np.ndarray, verbose: bool) -> None:
+        """Wait for a block's results on the host and keep them; once its
+        shard's last block is in, merge the blocks' top-k lists (positions
+        stay shard-local) and write the shard's probe slots of the
+        tables."""
+        if blk.events is not None:
+            ev0, ev1, done = blk.events
+            done.synchronize()
+            stats["device_scan_ms"] += ev0.elapsed_time(ev1)
+        dn, pn = blk.dists.numpy(), blk.pos.numpy()
+        # inf-distance fillers may carry positions past the real rows:
+        # clamp them so that members[pos] stays in bounds
+        live = np.isfinite(dn)
+        pn = np.where(live, pn, 0)
+        if blk.perm is not None:
+            pn = np.where(live, blk.perm.numpy()[pn], 0)
+        sh = blk.shard
+        sh.parts.append((dn, pn.astype(np.int64) + blk.lo
+                         if sh.blocks > 1 else pn))
+        if len(sh.parts) < sh.blocks:
+            return
+        if sh.blocks == 1:
+            d, pos = sh.parts[0]
+        else:
+            dcat = np.concatenate([p[0] for p in sh.parts], axis=1)
+            pcat = np.concatenate([p[1] for p in sh.parts], axis=1)
+            sel = np.argsort(dcat, axis=1, kind="stable")[:, :k]
+            d = np.take_along_axis(dcat, sel, axis=1)
+            pos = np.take_along_axis(pcat, sel, axis=1)
+        kk = min(k, len(sh.members))
+        dk = d[:, :kk]
+        tab_d[sh.qidx, sh.slot, :kk] = dk
+        # -1 ids on inf-distance fillers: a clamped real id with inf
+        # distance would inflate id-based recall (recall_from_ids
+        # recomputes distances from ids)
+        tab_i[sh.qidx, sh.slot, :kk] = np.where(
+            np.isfinite(dk), sh.members[pos[:, :kk]], -1)
+        if verbose:
+            print(f"# shard {sh.b}: {len(sh.members)} pts, {len(sh.qidx)} "
+                  f"queries ({stats['scan_s']:.1f}s scan)", flush=True)
+
+    def _stream(self, queries: np.ndarray, probed: list, k: int,
+                sub_nprobe: Optional[int], stats: dict, tab_d: np.ndarray,
+                tab_i: np.ndarray, verbose: bool) -> None:
+        """Read, upload and scan every shard ``b`` of ``probed``'s ``(b,
+        qidx, slot)`` that a query row probes and that holds rows, block by
+        block through the staging ring, and write the tables."""
+        rec = profiling.RECORDER
+        dev = self.device
+        on_cuda = dev.type == "cuda"
+        sizes = (self.store.sizes if self.store is not None
+                 else [len(c) for c in self.clusters])
+        probed = [p for p in probed if len(p[1]) and sizes[p[0]]]
+        if not probed:
+            return
+        # the query rows of every probed shard, shard after shard, gathered
+        # into one page-locked buffer and sent up in one copy
+        order = np.concatenate([qidx for _, qidx, _ in probed])
+        qrows = torch.empty((len(order), queries.shape[1]),
+                            pin_memory=on_cuda)
+        np.take(queries, order, axis=0, out=qrows.numpy(), mode="clip")
+        q_all, qv = qrows.to(dev, non_blocking=True), qrows.numpy()
+        stats["bytes_uploaded"] += qrows.nbytes
+        at = 0
+        grouped = self.sub_slices is not None or (
+            sub_nprobe is not None and self.store is None)
+        limit = self._scan_row_limit(max(len(q) for _, q, _ in probed),
+                                     self.dtype.itemsize, grouped)
+        longest = max(int(sizes[b]) for b, _, _ in probed)
+        stage = self._staging(max(min(limit or longest, longest), 1))
+        for i in range(2):      # a pass left unfinished may leave copies
+            stage.wait_free(i)
+        inflight: deque = deque()
+        j = 0                   # blocks staged in this pass
+        for b, qidx, slot in probed:
+            t0 = time.perf_counter()
+            if rec is not None:
+                step = rec.begin("stream.gather", dev)
+            q_block = q_all[at : at + len(qidx)]
+            fill, members, grouped = self._reader(
+                b, qv[at : at + len(qidx)], sub_nprobe)
+            at += len(qidx)
+            n = len(members)
+            size = limit or n
+            shard = _ShardScan(b, qidx, slot, members, -(-n // size))
+            stats["shards_scanned"] += 1
+            for lo in range(0, n, size):
+                hi = min(lo + size, n)
+                i = j % 2
+                j += 1
+                if lo:
+                    t0 = time.perf_counter()
+                    if rec is not None:
+                        step = rec.begin("stream.gather", dev)
+                fill(stage.views[i][: hi - lo], lo, hi)
+                if rec is not None:
+                    rec.end(step, dev)
+                    rec.count("stream.bytes_read",
+                              (hi - lo) * self.dim * self.dtype.itemsize)
+                t1 = time.perf_counter()
+                stats["gather_s"] += t1 - t0
+                if rec is not None:
+                    step = rec.begin("stream.upload", dev)
+                block = stage.upload(i, hi - lo)
+                stats["bytes_uploaded"] += block.nbytes
+                # the other host buffer is the next block's to fill
+                waited = stage.wait_free(1 - i)
+                stage.ready(i)
+                t2 = time.perf_counter()
+                stats["upload_s"] += t2 - t1
+                if rec is not None:
+                    rec.count("stream.blocks_staged", 1)
+                    rec.count("stream.staging_waits", int(waited))
+                    step = rec.next(step, "stream.scan", dev)
+                if on_cuda:
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev0.record()
+                d, pos, perm = self._scan(q_block, block, k, grouped)
+                events = None
+                if on_cuda:
+                    ev1.record()
+                    stage.scanned(i, ev1)
+                d, pos = _to_host(d), _to_host(pos)
+                if on_cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+                    events = (ev0, ev1, done)
+                if rec is not None:
+                    rec.end(step, dev)
+                stats["blocks_scanned"] += 1
+                inflight.append(_Inflight(shard, lo, d, pos, perm, events))
+                # a block's results are taken once two more blocks have
+                # been read: the host never waits for a scan just launched
+                while len(inflight) > 2:
+                    self._take(inflight.popleft(), k, stats, tab_d, tab_i,
+                               verbose)
+                stats["scan_s"] += time.perf_counter() - t1
+        t0 = time.perf_counter()
+        while inflight:
+            self._take(inflight.popleft(), k, stats, tab_d, tab_i, verbose)
+        stats["scan_s"] += time.perf_counter() - t0
 
     # -- full evaluation pass --------------------------------------------------
     def search(
@@ -555,12 +816,14 @@ class StreamedShardEngine:
         ServingEngine.recall_curve).
 
         ``stats``: wall seconds ``route_s``, ``gather_s`` (host reads of
-        the shards' rows), ``scan_s`` (upload + scan + read-back, of which
-        ``upload_s`` is the host-to-device copy), ``device_scan_ms`` (the
-        scans alone by CUDA events, a grouped block's permuting gather
-        included; 0 on the CPU), ``shards_scanned``,
-        ``blocks_scanned`` (more than the shards when some were sliced) and
-        ``bytes_uploaded``. Spans and counters: the module docstring.
+        the shards' rows into the staging buffers), ``scan_s`` (the host's
+        time in the uploads, the scans' launches and the taking of their
+        results, of which ``upload_s`` is the copies' enqueue and the waits
+        for a staging buffer), ``device_scan_ms`` (the scans alone by CUDA
+        events, a grouped block's permuting gather included; 0 on the CPU),
+        ``shards_scanned``, ``blocks_scanned`` (more than the shards when
+        some were sliced) and ``bytes_uploaded``. Spans and counters: the
+        module docstring.
         """
         rec = profiling.RECORDER
         if rec is not None:
@@ -592,42 +855,9 @@ class StreamedShardEngine:
                 "build_subclusters_store() (sub-cluster-major relayout) "
                 "before pruned search")
 
-        for b in range(lo, hi):
-            qidx, slot = np.nonzero(probes == b)
-            if len(qidx) == 0:
-                continue
-            t0 = time.perf_counter()
-            if rec is not None:
-                step = rec.begin("stream.gather", self.device)
-            rows, members, grouped = self.shard_block(
-                b, queries[qidx], sub_nprobe if use_subs else None)
-            if rec is not None:
-                rec.end(step, self.device)
-                rec.count("stream.bytes_read", rows.nbytes)
-            if len(members) == 0:
-                continue
-            stats["gather_s"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            mq = len(qidx)
-            qb = queries[qidx]
-            d, pos = self._scan_shard(
-                torch.as_tensor(qb, device=self.device), rows, k, stats,
-                grouped)
-            stats["scan_s"] += time.perf_counter() - t0
-            stats["shards_scanned"] += 1
-            stats["bytes_uploaded"] += qb.nbytes
-            kk = min(k, len(members))
-            dk = d[:, :kk]
-            tab_d[qidx, slot, :kk] = dk
-            # -1 ids on inf-distance fillers: a clamped real id with inf
-            # distance would inflate id-based recall (recall_from_ids
-            # recomputes distances from ids)
-            tab_i[qidx, slot, :kk] = np.where(
-                np.isfinite(dk), members[pos[:, :kk]], -1
-            )
-            if verbose:
-                print(f"# shard {b}: {len(members)} pts, {mq} queries "
-                      f"({stats['scan_s']:.1f}s scan)", flush=True)
+        probed = [(b, *np.nonzero(probes == b)) for b in range(lo, hi)]
+        self._stream(queries, probed, k, sub_nprobe if use_subs else None,
+                     stats, tab_d, tab_i, verbose)
         if rec is not None:
             rec.count("stream.bytes_uploaded", stats["bytes_uploaded"])
         if return_tables:

@@ -10,7 +10,10 @@ The CPU results are held against the JAX package by
 distances agree at rtol = atol = 1e-4 (the kernel's split-TF32 product
 against the CPU's f32 product), ids stand for the distances reported, a
 sliced pass equals the unsliced one, and a pass over a store launches kernel
-B2 exactly once per probed shard. A small GP store built on the card by
+B2 exactly once per probed shard. Through the staging ring (two page-locked
+host buffers and two device blocks, refilled dozens of times a pass, also
+under a slow copy or a slow scan) a pass gives bit for bit the answers of
+the same pass composed serially from the engine's public pieces. A small GP store built on the card by
 ``cli.scale_bench --method gp`` holds every id once and its binned curve
 lies within 0.002 of its exact one.
 """
@@ -121,11 +124,12 @@ def test_default_row_limit_comes_from_free_memory(cuda, setup):
     free, _ = torch.cuda.mem_get_info(cuda)
     limit = eng._scan_row_limit(NQ, 1)
     assert limit % 128 == 0
-    # a u8 row costs d raw + 4 d widened + its share of the summaries
-    assert limit <= 0.5 * free / (5 * D) + 128
+    # a u8 row costs 2 d raw (the staging ring's two device blocks) + 4 d
+    # widened + its share of the summaries
+    assert limit <= 0.5 * free / (6 * D) + 128
     assert limit > eng._scan_row_limit(NQ * 64, 1)
     # a grouped block's permuted rows are one more f32 copy a row
-    assert eng._scan_row_limit(NQ, 1, grouped=True) <= 0.5 * free / (9 * D) + 128
+    assert eng._scan_row_limit(NQ, 1, grouped=True) <= 0.5 * free / (10 * D) + 128
     assert engine(setup, "cpu")._scan_row_limit(NQ, 4) is None
     assert engine(setup, cuda, max_scan_rows=77)._scan_row_limit(NQ, 4) == 77
 
@@ -225,3 +229,170 @@ def test_gp_store_on_cuda_binned_within_exact(cuda, tmp_path, monkeypatch):
     np.testing.assert_allclose(curves["binned"], curves["exact"], rtol=0,
                                atol=0.002)
     assert curves["binned"][-1] >= 0.999
+
+
+# -- the staging ring ------------------------------------------------------------
+
+RING_N, RING_ROWS = 120_000, 2560
+# six shards of unequal sizes, 5 to 14 blocks of RING_ROWS each
+RING_SIZES = (12_000, 14_400, 16_800, 19_200, 24_000, 33_600)
+
+
+@pytest.fixture(scope="module")
+def ring(tmp_path_factory):
+    """A 120k x 32 hard base, f32 and u8, as shard-major stores of six
+    slab shards of unequal sizes, routed by every 20th row."""
+    from gpann_tpu_torch.eval.synth import generate, generate_queries
+    from gpann_tpu_torch.search.relayout import relayout_to_store
+
+    part = np.empty(RING_N, np.int32)
+    out = {}
+    for dtype in ("f32", "u8"):
+        pts = generate("hard", RING_N, D, seed=13, dtype=dtype)
+        order = np.argsort(np.asarray(pts[:, 0], np.float32), kind="stable")
+        part[order] = np.repeat(np.arange(len(RING_SIZES)), RING_SIZES)
+        store = relayout_to_store(pts, part, len(RING_SIZES),
+                                  str(tmp_path_factory.mktemp(dtype)))
+        q = generate_queries("hard", NQ, D, seed=13, dtype=dtype)
+        out[dtype] = dict(store=store, q=np.asarray(q, np.float32),
+                          rp=np.asarray(pts[::20], np.float32),
+                          rl=part[::20].copy())
+    return out
+
+
+def ring_engine(data, device, **kw):
+    from gpann_tpu_torch.search.streamed import StreamedShardEngine
+
+    return StreamedShardEngine(None, None, data["rp"], data["rl"],
+                               store=data["store"], device=device, **kw)
+
+
+def serial_pass(eng, q, nprobes, device):
+    """The pass composed serially from the engine's public pieces: each
+    probed shard's rows from ``shard_block``, uploaded and scanned block by
+    block of ``max_scan_rows`` rows (``fused_topk``, or the exact scan below
+    the binned guard), each block's results read back at once, then the
+    host merge of ``search``."""
+    from gpann_tpu_torch.search.streamed import (
+        _masked_rescored_topk, fused_topk)
+
+    probes = eng.probe_order(q, nprobes, voting_t=30)
+    m, limit = len(q), eng.max_scan_rows
+    tab_d = np.full((m, nprobes, K), np.inf, np.float32)
+    tab_i = np.full((m, nprobes, K), -1, np.int64)
+    for b in range(eng.num_shards):
+        qidx, slot = np.nonzero(probes == b)
+        if not len(qidx):
+            continue
+        rows, members, grouped = eng.shard_block(b, q[qidx])
+        assert not grouped and len(rows) > 2 * limit
+        qd = torch.from_numpy(q[qidx]).to(device)
+        parts = []
+        for lo in range(0, len(rows), limit):
+            blk = torch.from_numpy(rows[lo : lo + limit]).to(device).float()
+            n = len(blk)
+            scan = fused_topk if eng.takes_binned(n, K) else \
+                _masked_rescored_topk
+            d, p = (t.cpu().numpy() for t in scan(qd, blk, n, K, eng.metric))
+            parts.append((d, np.where(np.isfinite(d), p, 0).astype(np.int64)
+                          + lo))
+        dcat = np.concatenate([d for d, _ in parts], axis=1)
+        pcat = np.concatenate([p for _, p in parts], axis=1)
+        sel = np.argsort(dcat, axis=1, kind="stable")[:, :K]
+        d = np.take_along_axis(dcat, sel, axis=1)
+        pos = np.take_along_axis(pcat, sel, axis=1)
+        tab_d[qidx, slot] = d
+        tab_i[qidx, slot] = np.where(np.isfinite(d), members[pos], -1)
+    flat_d, flat_i = tab_d.reshape(m, -1), tab_i.reshape(m, -1)
+    sel = np.argsort(flat_d, axis=1, kind="stable")[:, :K]
+    return (np.take_along_axis(flat_d, sel, axis=1),
+            np.take_along_axis(flat_i, sel, axis=1))
+
+
+SLOW_CYCLES = 4_000_000    # ~2 ms of the card's clock
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lag", ["none", "slow-copy", "slow-scan"])
+@pytest.mark.parametrize("dtype", ["f32", "u8"])
+@pytest.mark.parametrize("scan_mode", ["binned", "exact"])
+def test_ring_wraps_bit_equal_to_serial(cuda, ring, monkeypatch, scan_mode,
+                                        dtype, lag):
+    """50 blocks through the two staging slots, each slot refilled ~25
+    times in the pass: the answers equal the serial composition's bit for
+    bit. ``slow-copy`` puts ~2 ms on the copy stream before every copy,
+    so the host reaches a buffer whose copy is still queued (a refill that
+    did not wait for it would send another block's rows); ``slow-scan``
+    puts it on the compute stream before every scan, so a copy reaches a
+    device block that a queued scan has still to read."""
+    from gpann_tpu_torch.search import streamed
+
+    data = ring[dtype]
+    eng = ring_engine(data, cuda, scan_mode=scan_mode,
+                      max_scan_rows=RING_ROWS)
+    if lag == "slow-copy":
+        upload = streamed._Staging.upload
+
+        def slow_upload(self, i, n):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(SLOW_CYCLES)
+            return upload(self, i, n)
+        monkeypatch.setattr(streamed._Staging, "upload", slow_upload)
+    elif lag == "slow-scan":
+        scan = streamed.StreamedShardEngine._scan
+
+        def slow_scan(self, *args):
+            torch.cuda._sleep(SLOW_CYCLES)
+            return scan(self, *args)
+        monkeypatch.setattr(streamed.StreamedShardEngine, "_scan", slow_scan)
+    gd, gi, stats = eng.search(data["q"], K, 3, voting_t=30)
+    monkeypatch.undo()
+    assert stats["blocks_scanned"] >= 3 * stats["shards_scanned"] >= 3 * 4
+    wd, wi = serial_pass(eng, data["q"], 3, cuda)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gi, wi)
+
+
+@pytest.mark.gpu
+def test_staging_is_pinned_kept_and_recorded(cuda, ring, monkeypatch):
+    """The ring's host buffers are page-locked and, with its device blocks,
+    kept from one pass to the next; the free memory is read once a pass;
+    every block is staged; the six ``stream.*`` spans keep their tree, and
+    the host time outside every step is not negative."""
+    from annbench.streamwindow import summarise
+    from gpann_tpu_torch.core.profiling import Recorder, recording
+
+    data = ring["f32"]
+    eng = ring_engine(data, cuda)
+    reads = []
+    mem_get_info = torch.cuda.mem_get_info
+
+    def counted(*args, **kw):
+        reads.append(args)
+        return mem_get_info(*args, **kw)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", counted)
+    eng.search(data["q"], K, 3, voting_t=30)
+    assert len(reads) == 1
+    stage = eng._stage
+    assert all(h.is_pinned() for h in stage.host)
+    assert all(b.device.type == "cuda" for b in stage.blocks)
+    ptrs = [t.data_ptr() for t in stage.host + stage.blocks]
+    rec = Recorder()
+    with recording(rec):
+        _, _, stats = eng.search(data["q"], K, 3, voting_t=30)
+    assert len(reads) == 2
+    assert eng._stage is stage
+    assert [t.data_ptr() for t in stage.host + stage.blocks] == ptrs
+    out = rec.drain()
+    assert out.counters["stream.blocks_staged"] == stats["blocks_scanned"] \
+        == stats["shards_scanned"] > 0
+    assert out.counters["stream.staging_waits"] >= 0
+    root = next(s for s in out.spans if s.name == "stream.pass")
+    names = {s.name for s in out.spans}
+    assert names == {"stream.pass", "stream.route", "stream.gather",
+                     "stream.upload", "stream.scan", "stream.merge"}
+    assert all(s.parent == root.id for s in out.spans if s is not root)
+    assert all(s.stream_ms is not None for s in out.spans)
+    summary = summarise(out.spans, out.counters)
+    assert summary["outside_ms"] >= 0
+    assert summary["stream_scan_ms"] > 0

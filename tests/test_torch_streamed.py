@@ -558,6 +558,72 @@ def test_memmap_base(setup, tmp_path):
     np.testing.assert_array_equal(a[1], b[1])
 
 
+
+def _ring_counters(eng, q, **kw):
+    """A pass with a recorder installed: its answers, stats and counters."""
+    from gpann_tpu_torch.core.profiling import Recorder, recording
+
+    rec = Recorder()
+    with recording(rec):
+        d, i, stats = eng.search(q, K, **kw)
+    return d, i, stats, rec.drain().counters
+
+
+def test_store_pass_through_the_ring_matches(setup, tmp_path):
+    """A store pass whose shards (~2.5k rows) take 5-6 blocks of 512 rows
+    each: the two staging slots are refilled ~20 times in the pass, and the
+    answers are the JAX engine's unsliced ones (the exact scan's top-k of
+    the blocks' top-k lists is the shard's)."""
+    pts, q, assign, _, rp, rl = setup
+    jstore = jrel.relayout_to_store(pts, assign, S, str(tmp_path / "st"))
+    jeng = JaxEngine(None, None, rp, rl, scan_mode="exact", store=jstore)
+    teng = StreamedShardEngine(None, None, rp, rl, scan_mode="exact",
+                               store=trel.ShardMajorStore(str(tmp_path / "st")),
+                               max_scan_rows=512, device="cpu")
+    wd, wi, _ = jeng.search(q, K, nprobes=3, voting_t=30)
+    gd, gi, stats, counters = _ring_counters(teng, q, nprobes=3, voting_t=30)
+    assert_same_search((gd, gi), (wd, wi), pts, q)
+    assert stats["blocks_scanned"] >= 5 * stats["shards_scanned"] >= 5 * 3
+    assert counters["stream.blocks_staged"] == stats["blocks_scanned"]
+    assert counters["stream.staging_waits"] == 0   # no copies on the CPU
+    assert teng._stage.rows == 512
+
+
+@pytest.mark.parametrize("read", ["pruned-store", "memmap"])
+def test_pruned_and_memmap_reads_go_through_the_ring(setup, tmp_path, read):
+    """The reads that no benchmark cell makes fill the same staging slots:
+    a pruned read of a sub-cluster-major store (the chosen sub-clusters'
+    slices side by side, cut across block borders) and a fancy-indexed
+    memmap base, both in blocks of a few hundred rows, match the JAX
+    engine's unsliced pass."""
+    if read == "pruned-store":
+        pts = generate("hard", RN, D, seed=11)
+        q = generate_queries("hard", 48, D, seed=11)
+        part = np.random.default_rng(555).integers(0, RS, size=RN)
+        rp, rl = pts[::50].copy(), part[::50].copy()
+        jstore = jrel.relayout_to_store(pts, part, RS, str(tmp_path / "j"))
+        jeng = JaxEngine(None, None, rp, rl, scan_mode="exact", store=jstore)
+        jeng.build_subclusters_store(target_sub_size=100, train_sample=600,
+                                     seed=1)
+        teng = StreamedShardEngine(
+            None, None, rp, rl, scan_mode="exact", max_scan_rows=96,
+            store=trel.ShardMajorStore(str(tmp_path / "j")), device="cpu")
+        kw = dict(nprobes=4, sub_nprobe=2)
+    else:
+        pts, q, _, clusters, rp, rl = setup
+        np.save(str(tmp_path / "base.npy"), pts)
+        mm = np.load(str(tmp_path / "base.npy"), mmap_mode="r")
+        jeng = JaxEngine(pts, clusters, rp, rl, scan_mode="exact")
+        teng = StreamedShardEngine(mm, clusters, rp, rl, scan_mode="exact",
+                                   max_scan_rows=700, device="cpu")
+        kw = dict(nprobes=3, voting_t=30)
+    wd, wi, _ = jeng.search(q, K, **kw)
+    gd, gi, stats, counters = _ring_counters(teng, q, **kw)
+    assert_same_search((gd, gi), (wd, wi), pts, q)
+    assert stats["blocks_scanned"] > stats["shards_scanned"] >= 3
+    assert counters["stream.blocks_staged"] == stats["blocks_scanned"]
+
+
 # -- in-shard sub-clusters -----------------------------------------------------
 
 def test_subcluster_artifact_carried_across(setup):
