@@ -61,7 +61,7 @@ paths at the bench configuration (8M x 96 points regenerated from seed 555,
    exchanging over gloo; each rank copies only its shards from a
    memory-mapped copy of the points. Recall against path 1's, the probed
    search against ``IVFIndex.search_probed``, a sharded Lloyd round that
-   repeats itself, each rank's batch split by step (``torch.profiler``),
+   repeats itself, each rank's batch split by step (the recorder's spans),
    B2 against its plain version at the routing shape; then
    ``cli.distributed_bench`` in 2 ranks through ``torch.distributed.run``
    on a 1M-point prefix.
@@ -2464,17 +2464,17 @@ def analysis_phase(dev, pts: np.ndarray, q: np.ndarray, qa_files: dict,
 def _multirank_steps(engine, q: np.ndarray, dev, cfg: dict) -> dict:
     """One batch through ``engine.serve_device`` as it is, twice: once
     alone, for its wall milliseconds (a synchronisation at the end), then
-    under ``torch.profiler`` for its split by the steps that
-    ``serve_device`` marks (``dist.mesh.SERVE_STEPS``): per step, summed
-    over the microbatches, the host milliseconds inside the step's ranges
-    and the device milliseconds of the kernels and copies launched in
-    them, and the seconds the profiled call took in all (the profiler's
-    start and its event processing included). The ranks meet at a barrier
-    before each batch (outside the steps), so that no rank's first
-    exchange waits for another's start."""
+    with a recorder installed for its split by the spans that
+    ``serve_device`` records (``dist.mesh.SERVE_STEPS``): per step, summed
+    over the microbatches, the host milliseconds between the spans' edges
+    and the stream milliseconds between their CUDA events (nan off the
+    card), and the seconds the recorded call took in all (the barrier and
+    the recorder's drain included). The ranks meet at a barrier before each
+    batch (outside the steps), so that no rank's first exchange waits for
+    another's start."""
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
+    from gpann_tpu_torch.core import profiling
     from gpann_tpu_torch.dist.mesh import SERVE_STEPS
 
     cuda = dev.type == "cuda"
@@ -2492,18 +2492,18 @@ def _multirank_steps(engine, q: np.ndarray, dev, cfg: dict) -> dict:
     t0 = time.perf_counter()
     batch()
     out = {"wall": (time.perf_counter() - t0) * 1e3}
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        dist.barrier()
+    dist.barrier()
+    with profiling.recording(profiling.Recorder()) as rec:
         batch()
-    rows = {e.key: e for e in prof.key_averages()
-            if e.key in SERVE_STEPS
-            and e.device_type == torch.autograd.DeviceType.CPU}
-    out["profile_s"] = time.perf_counter() - t0
+    spans = rec.drain().spans
+    out["record_s"] = time.perf_counter() - t0
     for step in SERVE_STEPS:
-        out[step] = (rows[step].cpu_time_total / 1e3,
-                     rows[step].device_time_total / 1e3)
+        mine = [sp for sp in spans if sp.name == step]
+        assert mine, step
+        out[step] = (sum(sp.end_ns - sp.start_ns for sp in mine) / 1e6,
+                     sum(sp.stream_ms for sp in mine) if cuda
+                     else float("nan"))
     return out
 
 
@@ -2652,11 +2652,11 @@ def multirank_phase(dev, pts: np.ndarray, q: np.ndarray, art: dict,
             log(f"{what} rank {out['rank']}: {out['shards']} shards, capacity "
                 f"{out['capacity']}, built in {out['build_s']:.3f} s, serve "
                 f"{out['serve_s']:.3f} s; one {NQ}-query serve_device batch "
-                f"{st['wall']:.3f} ms wall; profiled, host / device ms by "
+                f"{st['wall']:.3f} ms wall; recorded, host / stream ms by "
                 f"step: " + ", ".join(
                     f"{step} {st[step][0]:.3f} / {st[step][1]:.3f}"
                     for step in SERVE_STEPS)
-                + f" (the profiled call {st['profile_s']:.3f} s in all); "
+                + f" (the recorded call {st['record_s']:.3f} s in all); "
                 f"launches {out['launches']} {tag}")
             for name in launches:
                 launches[name] += out["launches"][name]

@@ -2,9 +2,10 @@
 ``gpann_tpu/core/profiling.py``).
 
 - :class:`Recorder` with :func:`recording` — spans and counters recorded
-  inside the serving engine (``search/serve.py``, ``search/bin_scan.py``):
-  off unless a caller installs a recorder. The benchmark's span window
-  (``annbench/spanwindow.py``) and ``tests/test_torch_spans.py`` read them.
+  inside the engines (``search/serve.py``, ``search/bin_scan.py``,
+  ``search/streamed.py``, ``dist/mesh.py``): off unless a caller installs
+  a recorder. The benchmark's span window (``annbench/spanwindow.py``),
+  ``chip_smoke.py``'s multi-rank phase and the span tests read them.
 - :class:`StageTimer` — accumulating named stage timers with a report,
   the ``Timer`` + cout narration pattern structured; the query-attribution
   and small-scale CLIs print it.

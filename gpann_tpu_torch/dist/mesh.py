@@ -11,7 +11,8 @@ ranks (counterpart of ``gpann_tpu/dist/mesh.py``; reference
 - **Query flow.** A batch is split over dp and replicated over shard. Each
   rank scans its dp slice against its shards, each shard meeting only the
   queries whose probe list holds its global id
-  (:func:`~gpann_tpu_torch.search.ivf._scan_probed_dense`), then the ranks
+  (:func:`~gpann_tpu_torch.search.ivf._scan_probed_dense` over
+  :mod:`gpann_tpu_torch.search.exact`'s exact scan), then the ranks
   of a dp row ``all_gather`` their ``[m, k]`` lists and take the top-k, the
   lower rank's entry first on equal distances (the order of ``lax.top_k``).
   A last ``all_gather`` over dp gives every rank the whole result.
@@ -19,9 +20,11 @@ ranks (counterpart of ``gpann_tpu/dist/mesh.py``; reference
   dp slice with :func:`~gpann_tpu_torch.search.serve._probe_rank` (four
   rules, four voting impls; ``voting_impl="binned"`` runs the bin-top-2
   kernel on a CUDA device), microbatch by microbatch: route, local scan,
-  gather and merge. ``serve_device`` marks each step with a
-  ``torch.profiler.record_function`` range (:data:`SERVE_STEPS`), so a
-  profiled call splits its time by step.
+  gather and merge. With a recorder installed
+  (:func:`gpann_tpu_torch.core.profiling.recording`) ``serve_device``
+  records a ``dist.batch`` span a call with one span a step and microbatch
+  inside (:data:`SERVE_STEPS`); without one, each call site reads one
+  module global and nothing else.
 - **Index build.** :func:`sharded_lloyd_round` is one Lloyd round over
   points split across all ranks; the per-rank sums are gathered and added
   in rank order, so two calls give identical results.
@@ -49,16 +52,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from gpann_tpu_torch.cluster.kmeans import _nearest64, _segment_sum
+from gpann_tpu_torch.core import profiling
 from gpann_tpu_torch.core.distances import Metric, sq_norms, to_device
 from gpann_tpu_torch.core.partition import Clusters
-from gpann_tpu_torch.search.ivf import (_round_up, _scan_probed_dense,
-                                        _shard_bias)
+from gpann_tpu_torch.search.exact import round_up, shard_bias
+from gpann_tpu_torch.search.ivf import _scan_probed_dense
 from gpann_tpu_torch.search.serve import _VOTING_IMPLS, _probe_rank
 
-# the profiler ranges of serve_device's steps
+# the recorded spans of serve_device's steps
 SERVE_STEPS = ("dist.route", "dist.local_scan", "dist.merge_shards",
                "dist.gather_dp")
 
@@ -207,7 +210,7 @@ class DistributedIVF:
         mine = [np.asarray(clusters[b], np.int64) if b < s
                 else np.empty(0, np.int64) for b in range(lo, lo + s_local)]
         sizes = np.asarray([len(c) for c in mine], np.int32)
-        cap = _round_up(max(int(sizes.max()), 1), pad_multiple)
+        cap = round_up(max(int(sizes.max()), 1), pad_multiple)
         blocks = torch.zeros((s_local, cap, points.shape[1]),
                              dtype=torch.float32, device=device)
         ids = torch.full((s_local, cap), -1, dtype=torch.int32, device=device)
@@ -229,7 +232,7 @@ class DistributedIVF:
         self.shard_points, self.shard_sizes, self.shard_ids = blocks, sizes, ids
         self.capacity = blocks.shape[1]
         self.shard_offset = mesh.shard_index * blocks.shape[0]
-        self._bias = _shard_bias(blocks, sizes, metric)
+        self._bias = shard_bias(blocks, sizes, metric)
         self._host = _host_exchange(mesh, device, backend)
 
     @classmethod
@@ -387,24 +390,36 @@ class DistributedServingEngine(DistributedIVF):
             raise ValueError(f"{m} queries: dp={self.mesh.dp} must divide the "
                              "batch (serve() pads it)")
         local = queries[self._dp_rows(m)]
+        rec, dev = profiling.RECORDER, self.device
+        if rec is not None:
+            batch = rec.begin("dist.batch", dev, root=True)
         outs_d, outs_i = [], []
         for s0 in range(0, len(local), microbatch):
             q = local[s0 : s0 + microbatch]
-            with record_function(SERVE_STEPS[0]):
-                probes = self._route(q, nprobes, voting_t, rule, spann_eps)
-            with record_function(SERVE_STEPS[1]):
-                d, i = self._local_scan(q, probes, k)
-            with record_function(SERVE_STEPS[2]):
-                d, i = self._merge_shards(d, i, k)
+            if rec is not None:
+                step = rec.begin(SERVE_STEPS[0], dev)
+            probes = self._route(q, nprobes, voting_t, rule, spann_eps)
+            if rec is not None:
+                step = rec.next(step, SERVE_STEPS[1], dev)
+            d, i = self._local_scan(q, probes, k)
+            if rec is not None:
+                step = rec.next(step, SERVE_STEPS[2], dev)
+            d, i = self._merge_shards(d, i, k)
+            if rec is not None:
+                rec.end(step, dev)
             outs_d.append(d)
             outs_i.append(i)
         if not outs_d:
-            outs_d.append(torch.empty((0, k), device=self.device))
-            outs_i.append(torch.empty((0, k), dtype=torch.int32,
-                                      device=self.device))
-        with record_function(SERVE_STEPS[3]):
-            return (self._gather_dp(torch.cat(outs_d)),
-                    self._gather_dp(torch.cat(outs_i)))
+            outs_d.append(torch.empty((0, k), device=dev))
+            outs_i.append(torch.empty((0, k), dtype=torch.int32, device=dev))
+        if rec is not None:
+            step = rec.begin(SERVE_STEPS[3], dev)
+        out = (self._gather_dp(torch.cat(outs_d)),
+               self._gather_dp(torch.cat(outs_i)))
+        if rec is not None:
+            rec.end(step, dev)
+            rec.end(batch, dev)
+        return out
 
     def serve(self, queries, k: int, nprobes: int, voting_t: int = 60,
               rule: str = "min_dist", spann_eps: float = 0.6,

@@ -1,5 +1,6 @@
-"""In-shard search layer: the bin-top-2 scan, the IVF index, the resident
-serving engine, the shard-major store and the streamed engine.
+"""In-shard search layer: the exact block scan and rescore that every engine
+shares, the bin-top-2 scan, the IVF index, the resident serving engine, the
+shard-major store and the streamed engine.
 
 Import the submodules directly (``gpann_tpu_torch.search.serve``,
 ``gpann_tpu_torch.search.ivf``, ...). Unlike ``gpann_tpu/search``, which

@@ -4,9 +4,11 @@ Counterpart of ``gpann_tpu/search/pallas_scan.py``. Phase 1 reduces every
 [query, 128-row bin] tile of the distance matrix to its two smallest
 distances and their row ids, so device memory sees [m, 2*cap/128] summaries
 and never the [m, cap] matrix. Phase 2 picks the ``nc`` best bin entries
-with ``torch.topk``; phase 3 rescores those candidates exactly in f32 and
-takes the top-k. A true neighbour is lost only when >= 3 of the true top-k
-share one bin, so ``BIN`` decides recall and stays 128.
+with ``torch.topk``; phase 3 rescores those candidates exactly in f32
+(:func:`gpann_tpu_torch.search.exact.exact_distances`, the one copy of the
+rescore's formula) and takes the top-k. A true neighbour is lost only when
+>= 3 of the true top-k share one bin, so ``BIN`` decides recall and stays
+128.
 
 Phase 1 has two implementations with one contract:
 
@@ -36,7 +38,7 @@ import torch
 
 from gpann_tpu_torch.core import profiling
 from gpann_tpu_torch.core.distances import Metric, sq_norms
-from gpann_tpu_torch.search.ivf import _round_up
+from gpann_tpu_torch.search.exact import exact_distances, round_up
 
 BIN = 128  # rows per bin: decides the candidate set, hence recall
 
@@ -142,7 +144,7 @@ def binmin_scan_plain(qs: torch.Tensor, base: torch.Tensor, n_valid,
                       metric: Metric = "l2", dots_fn=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch :func:`binmin_scan` (same inputs, same outputs)."""
-    cap = _round_up(max(base.shape[0], 1), BIN)
+    cap = round_up(max(base.shape[0], 1), BIN)
     return _bin_top2_plain(qs, base, int(n_valid), cap, metric, dots_fn)
 
 
@@ -184,7 +186,7 @@ def binmin_scan(qs: torch.Tensor, base: torch.Tensor, n_valid,
     n = base.shape[0]
     if not isinstance(n_valid, torch.Tensor) and not 0 <= n_valid <= n:
         raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
-    cap = _round_up(max(n, 1), BIN)
+    cap = round_up(max(n, 1), BIN)
     row_off = torch.zeros(1, dtype=torch.int64, device=qs.device)
     # filled on the device: a tensor made from a host number would be a
     # blocking copy
@@ -229,10 +231,7 @@ def _select_and_rescore(queries, base, mins, argmins, row_base, k: int,
         rows = rows + row_base[:, None]
     # masked entries (+inf) may point past the base; their scores are masked
     cand = base[rows.clamp_(max=base.shape[0] - 1)]        # [m, nc, d]
-    if metric == "mips":
-        exact = 1.0 - torch.einsum("md,mcd->mc", queries, cand)
-    else:
-        exact = ((queries[:, None, :] - cand) ** 2).sum(-1)
+    exact = exact_distances(queries, cand, metric)
     exact = torch.where(torch.isfinite(bvals), exact, torch.inf)
     dist, pos = torch.topk(exact, k, dim=1, largest=False)
     return dist, cand_ids.gather(1, pos)

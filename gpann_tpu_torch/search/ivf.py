@@ -4,8 +4,9 @@
 The base points are laid out as a padded ``[num_shards, capacity, d]`` tensor
 on the index's device plus an id table; a bucket scan is one fp32
 ``[m, capacity]`` distance matmul, ``torch.topk`` and an exact f32 rescore
-of the candidates. As in the JAX package, this is a plain matrix product,
-not a hand-written kernel.
+of the candidates (:func:`gpann_tpu_torch.search.exact.blocks_topk`, the
+exact scan every engine shares). As in the JAX package, this is a plain
+matrix product, not a hand-written kernel.
 
 An exact scan returns the true in-shard top-k, i.e. the recall of HNSW at
 ``ef -> inf`` for every shard, so the hit-recording semantics
@@ -36,38 +37,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gpann_tpu_torch.core.distances import Metric, sq_norms, to_device
+from gpann_tpu_torch.core.distances import Metric, to_device
 from gpann_tpu_torch.core.partition import Clusters
-
-# device bytes of one [rows, capacity] f32 distance tile
-TILE_BYTES = 1 << 30
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _exact_rescore(qs: torch.Tensor, block: torch.Tensor, scan_d: torch.Tensor,
-                   pos: torch.Tensor, k: int, metric: Metric):
-    """Exact f32 re-ranking of scanned candidates.
-
-    Gathers the candidate rows ``block[pos]`` [m, K, d], recomputes their
-    distances directly (sum((q-c)^2) or 1 - q.c) and keeps the best k.
-    Masked (inf) scan entries stay masked. Returns (dists [m, k],
-    positions-in-block [m, k])."""
-    cand = block[pos]
-    if metric == "mips":
-        exact = 1.0 - torch.einsum("md,mkd->mk", qs, cand)
-    else:
-        exact = ((qs[:, None, :] - cand) ** 2).sum(-1)
-    exact = torch.where(torch.isfinite(scan_d), exact, torch.inf)
-    d, sel = torch.topk(exact, k, dim=1, largest=False)
-    return d, pos.gather(1, sel)
-
-
-def _scan_k(k: int, cap: int, rescore: bool) -> int:
-    """Candidate count for the scan phase."""
-    return min(max(k, 16) if rescore else k, cap)
+from gpann_tpu_torch.search.exact import (TILE_BYTES, blocks_per_step,
+                                          blocks_topk, round_up, shard_bias)
 
 
 def _row_chunk(cap: int) -> int:
@@ -86,45 +59,6 @@ def _merge_topk(best_d: torch.Tensor, best_i: torch.Tensor, d: torch.Tensor,
     return sd[:, :k], cat_i.gather(1, order[:, :k])
 
 
-def _shard_bias(shard_points: torch.Tensor, shard_sizes: torch.Tensor,
-                metric: Metric) -> torch.Tensor:
-    """The scan's per-row bias [s, cap]: |x|^2 (L2) or 1 (MIPS), +inf on
-    rows past a shard's size. A row ranks by bias + alpha * q.x."""
-    s, cap = shard_points.shape[:2]
-    dev = shard_points.device
-    live = torch.arange(cap, device=dev)[None, :] < shard_sizes[:, None]
-    bias = (sq_norms(shard_points) if metric == "l2"
-            else torch.ones((s, cap), device=dev))
-    return bias.masked_fill_(~live, torch.inf)
-
-
-def _blocks_topk(qs: torch.Tensor, block: torch.Tensor, bias: torch.Tensor,
-                 ids: torch.Tensor, k: int, metric: Metric, rescore: bool):
-    """Top-k of query blocks ``qs`` [c, r, d], block j against shard rows
-    ``block[j]`` [cap, d] with their bias [c, cap] and global ids [c, cap]:
-    (dists [c, r, k], global ids [c, r, k])."""
-    c, r, dim = qs.shape
-    cap = block.shape[1]
-    # one pass over the [c, r, cap] tile: the bias rides in the GEMM
-    dm = torch.baddbmm(bias[:, None, :], qs, block.transpose(1, 2),
-                       alpha=-1.0 if metric == "mips" else -2.0)
-    d, pos = torch.topk(dm, _scan_k(k, cap, rescore), dim=2, largest=False)
-    del dm
-    if metric == "l2":
-        # |q|^2 is constant along a row: added to the kept entries only
-        d = d + sq_norms(qs)[:, :, None]
-    # positions in the c blocks laid end to end
-    pos = (pos + (torch.arange(c, device=qs.device) * cap)[:, None, None]
-           ).view(c * r, -1)
-    d = d.view(c * r, -1)
-    if rescore:
-        d, pos = _exact_rescore(qs.reshape(c * r, dim),
-                                block.reshape(c * cap, dim), d, pos, k, metric)
-    else:
-        d, pos = d[:, :k], pos[:, :k]
-    return d.view(c, r, k), ids.reshape(-1)[pos].view(c, r, k)
-
-
 def _scan_probed_dense(queries: torch.Tensor, probes: torch.Tensor,
                        shard_points: torch.Tensor, shard_sizes: torch.Tensor,
                        shard_ids: torch.Tensor, k: int, metric: Metric,
@@ -137,7 +71,7 @@ def _scan_probed_dense(queries: torch.Tensor, probes: torch.Tensor,
     were met. The counterpart of ``gpann_tpu/search/ivf.py::
     _scan_probed_dense`` and of the local scan of ``gpann_tpu/dist/mesh.py``
     (``shard_offset``: the global id of this stack's first shard). An
-    index that holds the stack's :func:`_shard_bias` passes it as ``bias``;
+    index that holds the stack's ``shard_bias`` passes it as ``bias``;
     otherwise each visited shard's is computed.
 
     The JAX scan masks every query that does not probe a shard; here each
@@ -166,12 +100,12 @@ def _scan_probed_dense(queries: torch.Tensor, probes: torch.Tensor,
         if count == 0:
             continue
         sel = slice(b, b + 1)
-        b_bias = (_shard_bias(shard_points[sel], shard_sizes[sel], metric)
+        b_bias = (shard_bias(shard_points[sel], shard_sizes[sel], metric)
                   if bias is None else bias[sel])
         for r0 in range(0, count, step):
             r = rows[r0 : r0 + step]
-            d, i = _blocks_topk(queries[r][None], shard_points[sel], b_bias,
-                                shard_ids[sel], k, metric, rescore)
+            d, i = blocks_topk(queries[r][None], shard_points[sel], b_bias,
+                               shard_ids[sel], k, metric, rescore)
             best_d[r], best_i[r] = _merge_topk(best_d[r], best_i[r], d[0],
                                                i[0], k)
     if metric == "l2":
@@ -203,7 +137,7 @@ class IVFIndex:
         self.num_shards = len(clusters)
         self.dim = points.shape[1]
         sizes = np.asarray([len(c) for c in clusters], dtype=np.int32)
-        cap = _round_up(max(int(sizes.max()), 1), pad_multiple)
+        cap = round_up(max(int(sizes.max()), 1), pad_multiple)
         self.capacity = cap
         blocks = torch.zeros((self.num_shards, cap, self.dim),
                              dtype=torch.float32, device=self.device)
@@ -216,7 +150,7 @@ class IVFIndex:
             ids[b, : len(members)] = members
         self.shard_points = blocks
         self.shard_sizes = torch.as_tensor(sizes).to(self.device)
-        self._bias = _shard_bias(blocks, self.shard_sizes, metric)  # [s, cap]
+        self._bias = shard_bias(blocks, self.shard_sizes, metric)  # [s, cap]
         self.shard_ids = torch.as_tensor(ids).to(self.device)
         self.sizes_np = sizes
         # overlap detection: dedup across probes is only needed when some
@@ -235,8 +169,8 @@ class IVFIndex:
         ``shards`` is an int (one shard, read in place; c = 1) or an int64
         tensor [c] (those shards' rows are gathered)."""
         sel = slice(shards, shards + 1) if isinstance(shards, int) else shards
-        return _blocks_topk(qs, self.shard_points[sel], self._bias[sel],
-                            self.shard_ids[sel], k, self.metric, self.rescore)
+        return blocks_topk(qs, self.shard_points[sel], self._bias[sel],
+                           self.shard_ids[sel], k, self.metric, self.rescore)
 
     def _finish(self, d: torch.Tensor, i: torch.Tensor):
         if self.metric == "l2":
@@ -328,9 +262,7 @@ class IVFIndex:
         block_shard = torch.as_tensor(block_shard).to(self.device)
         d = torch.empty((nb, qb, k), device=self.device)
         i = torch.empty((nb, qb, k), dtype=torch.int32, device=self.device)
-        # blocks per step: their distance tiles and gathered shard rows
-        # together stay under TILE_BYTES
-        step = max(1, TILE_BYTES // (4 * self.capacity * (qb + self.dim)))
+        step = blocks_per_step(self.capacity, qb, self.dim)
         for s in range(0, nb, step):
             d[s : s + step], i[s : s + step] = self._blocks_topk(
                 rows[s : s + step], block_shard[s : s + step], k)

@@ -13,7 +13,10 @@ Each batch of queries goes through four steps on the engine's device:
 3. **Scan**: ``scan_mode="binned"`` scans every block against its shard's
    window of one flat resident base in one bin-top-2 launch
    (:func:`gpann_tpu_torch.search.bin_scan.fused_topk_blocks`);
-   ``"exact"`` runs a matmul + top-k + exact rescore per block.
+   ``"exact"`` scans the blocks against their gathered shard windows, many
+   blocks per batched matmul, with an exact rescore
+   (:func:`gpann_tpu_torch.search.exact.blocks_topk`, the exact scan of
+   every engine; the rescore's distance formula lives there too).
 4. **Merge**: per-probe top-k lists are scattered to a per-query table,
    deduplicated by id when shards overlap, and reduced to the final top-k.
 
@@ -24,10 +27,10 @@ each batch records a ``serve.batch`` span with one child a step
 its block rows (``b1.rows_real``, ``b1.rows_scanned``). Without one, each
 call site reads one module global and nothing else.
 
-The binned scan mode enqueues a whole batch without waiting on the device:
-no step reads a device value back or copies a host value over, so the host
-first waits in :meth:`ServingEngine.serve`'s read-back of the results. (The
-exact scan mode reads each block's shard id on the host.)
+Either scan mode enqueues a whole batch without waiting on the device: no
+step reads a device value back or copies a host value over (the exact
+scan's step count comes from shapes), so the host first waits in
+:meth:`ServingEngine.serve`'s read-back of the results.
 
 PyTorch runs eagerly, so there is no compiled program per configuration.
 Scatters that JAX drops when out of bounds (the dummy shard) go to one spare
@@ -46,7 +49,9 @@ from gpann_tpu_torch.core.distances import Metric, sq_norms
 from gpann_tpu_torch.core.partition import Clusters
 from gpann_tpu_torch.search.bin_scan import (BIN, fused_topk,
                                              fused_topk_blocks, scan_order)
-from gpann_tpu_torch.search.ivf import _exact_rescore, _round_up, _scan_k
+from gpann_tpu_torch.search.exact import (blocks_per_step, blocks_topk,
+                                          exact_distances, round_up,
+                                          shard_bias)
 
 _VOTING_IMPLS = ("exact", "approx", "rescore", "binned")
 _RULES = ("min_dist", "pyramid", "spann", "frequency")
@@ -88,10 +93,7 @@ def _probe_rank(queries, router_points, router_labels, router_sq, *, s: int,
             c = min(2 * t + 16, router_points.shape[0])
             _, cidx = torch.topk(rdm, c, dim=1, largest=False)
             cand = router_points[cidx]                      # [m, c, d]
-            if metric == "mips":
-                exact = 1.0 - torch.einsum("md,mcd->mc", queries, cand)
-            else:
-                exact = ((queries[:, None, :] - cand) ** 2).sum(-1)
+            exact = exact_distances(queries, cand, metric)
             ndist, sel = torch.topk(exact, t, dim=1, largest=False)
             nshard = router_labels[cidx.gather(1, sel)]
         else:
@@ -206,9 +208,9 @@ class ServingEngine:
         sizes = np.asarray([len(c) for c in clusters], np.int32)
         all_ids = (np.concatenate([np.asarray(c) for c in clusters if len(c)])
                    if sizes.sum() else np.empty(0, np.int32))
-        cap = _round_up(max(int(sizes.max()), 1), pad_multiple)
+        cap = round_up(max(int(sizes.max()), 1), pad_multiple)
         if scan_mode == "binned":
-            cap = _round_up(cap, BIN)  # the scan covers whole bins
+            cap = round_up(cap, BIN)  # the scan covers whole bins
         dim = points.shape[1]
         # stored flat [s*cap, d]: the scan reads shard windows straight out
         # of it (window b = rows [b*cap, b*cap + size_b))
@@ -312,8 +314,9 @@ class ServingEngine:
                 and 2 * (self.max_size // BIN + 1) >= 4 * k)
 
     def _scan_blocks(self, queries: torch.Tensor, g: Grouping, qb: int):
-        """Inputs of the binned scan for one grouped batch: (query rows
-        [total, d], window row offsets [nb], live sizes [nb])."""
+        """Inputs of the scan for one grouped batch: (query rows [total, d],
+        window row offsets [nb], live sizes [nb]; 0 for blocks of the dummy
+        shard and blocks of padding rows only)."""
         m = queries.shape[0]
         s = self.num_shards
         queries_ext = torch.cat([queries, queries.new_zeros((1, self.dim))])
@@ -326,8 +329,8 @@ class ServingEngine:
     def _scan(self, queries, g: Grouping, k: int, qb: int):
         m = queries.shape[0]
         s, cap = self.num_shards, self.capacity
+        qrows, row_off, sizes = self._scan_blocks(queries, g, qb)
         if self._binned(k):
-            qrows, row_off, sizes = self._scan_blocks(queries, g, qb)
             rec = profiling.RECORDER
             if rec is not None:
                 scanned = sizes > 0
@@ -340,34 +343,26 @@ class ServingEngine:
                 phase2=self.scan_phase2)
             rows = row_off.repeat_interleave(qb)[:, None] + lpos.long()
             bi = self.shard_ids[rows]
-            # inf-distance fillers carry positions that can alias real ids
-            return bd, torch.where(torch.isfinite(bd), bi, -1)
-
-        queries_ext = torch.cat([queries, queries.new_zeros((1, self.dim))])
-        sp3 = self.shard_points.view(s, cap, self.dim)
-        ids2 = self.shard_ids.view(s, cap)
-        pair_q = g.pair_q.view(-1, qb)
-        nb = pair_q.shape[0]
-        bd = torch.full((nb, qb, k), torch.inf, device=self.device)
-        bi = torch.full((nb, qb, k), -1, dtype=torch.int32, device=self.device)
-        # padding blocks (dummy shard or all-padding queries) are skipped
-        real = (self.shard_sizes_ext[g.block_shard] > 0) & (pair_q < m).any(1)
-        kk = _scan_k(k, cap, rescore=True)
-        for b in torch.nonzero(real).flatten().tolist():
-            qidx = pair_q[b]
-            shard = int(g.block_shard[b])
-            qs, blk = queries_ext[qidx], sp3[shard]
-            dots = qs @ blk.T
-            if self.metric == "mips":
-                dm = 1.0 - dots
-            else:
-                dm = sq_norms(qs)[:, None] + sq_norms(blk)[None, :] - 2.0 * dots
-            live = torch.arange(cap, device=self.device) < self.shard_sizes_ext[shard]
-            dm = torch.where(live[None, :], dm, torch.inf)
-            vals, pos = torch.topk(dm, kk, dim=1, largest=False)
-            d, pos = _exact_rescore(qs, blk, vals, pos, k, self.metric)
-            bd[b], bi[b] = d, ids2[shard][pos]
-        return bd.view(-1, k), bi.view(-1, k)
+        else:
+            # blocks in steps under TILE_BYTES; a size-0 block's bias is all
+            # +inf, so its lists are +inf and masked below
+            qrows = qrows.view(-1, qb, self.dim)
+            shard = g.block_shard.clamp(max=s - 1)
+            windows = self.shard_points.view(s, cap, self.dim)
+            ids = self.shard_ids.view(s, cap)
+            nb = shard.shape[0]
+            bd = torch.empty((nb, qb, k), device=self.device)
+            bi = torch.empty((nb, qb, k), dtype=torch.int32, device=self.device)
+            step = blocks_per_step(cap, qb, self.dim)
+            for b0 in range(0, nb, step):
+                sel = slice(b0, b0 + step)
+                blk = windows[shard[sel]]
+                bd[sel], bi[sel] = blocks_topk(
+                    qrows[sel], blk, shard_bias(blk, sizes[sel], self.metric),
+                    ids[shard[sel]], k, self.metric, rescore=True)
+            bd, bi = bd.view(-1, k), bi.view(-1, k)
+        # inf-distance fillers carry positions that can alias real ids
+        return bd, torch.where(torch.isfinite(bd), bi, -1)
 
     def _pipeline(self, queries, k: int, nprobes: int, voting_t: int,
                   rule: str, qb: int, spann_eps: float, kth=None,

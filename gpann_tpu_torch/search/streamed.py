@@ -67,7 +67,7 @@ from gpann_tpu_torch.core.distances import (
     Metric, assign_closest, to_device, topk_neighbors)
 from gpann_tpu_torch.core.partition import Clusters
 from gpann_tpu_torch.search.bin_scan import BIN, fused_topk, scan_order
-from gpann_tpu_torch.search.ivf import _exact_rescore, _scan_k
+from gpann_tpu_torch.search.exact import exact_rescore, scan_k
 from gpann_tpu_torch.search.serve import _probe_rank
 
 _ROUTE_CHUNK = 65536    # queries per routing step
@@ -79,15 +79,17 @@ _FREE_SHARE = 0.5
 def _masked_rescored_topk(q_block: torch.Tensor, blk: torch.Tensor, size: int,
                           k: int, metric: Metric):
     """Exact-scan shard top-k: rows ``>= size`` masked, fp32 scan, then the
-    exact f32 rescore that the resident engine and ``fused_topk`` apply too.
-    Returns ``(dists [m, k], positions [m, k])``; where the block has fewer
-    than ``k`` live rows the tail is (+inf, 0)."""
+    exact f32 rescore of ``search/exact.py`` that every engine applies. The
+    one-window form of :func:`gpann_tpu_torch.search.exact.blocks_topk`: a
+    block of any length, scanned in ``topk_neighbors``' chunks. Returns
+    ``(dists [m, k], positions [m, k])``; where the block has fewer than
+    ``k`` live rows the tail is (+inf, 0)."""
     blk = blk.float()  # byte blocks widen on the device, once
-    kk = _scan_k(k, blk.shape[0], True)
+    kk = scan_k(k, blk.shape[0], True)
     dscan, pos = topk_neighbors(q_block, blk, kk, metric=metric, n_valid=size)
     # padded ids of topk_neighbors (== n) must not index the block
     pos = pos.long().clamp_(max=max(blk.shape[0] - 1, 0))
-    d, pos = _exact_rescore(q_block, blk, dscan, pos, min(k, kk), metric)
+    d, pos = exact_rescore(q_block, blk, dscan, pos, min(k, kk), metric)
     if kk < k:
         m = q_block.shape[0]
         d = torch.cat([d, d.new_full((m, k - kk), torch.inf)], dim=1)

@@ -31,6 +31,7 @@ from gpann_tpu.dist import shard_mesh as jax_mesh
 from gpann_tpu.dist import sharded_lloyd_round as jax_lloyd
 from gpann_tpu.route import centroid_router
 from gpann_tpu_torch.cluster.kmeans import kmeans, random_sample
+from gpann_tpu_torch.core import profiling
 from gpann_tpu_torch.dist import (DistributedIVF, DistributedServingEngine,
                                   shard_mesh, sharded_lloyd_round)
 from gpann_tpu_torch.dist.launch import run_ranks
@@ -350,20 +351,27 @@ def test_one_rank_layout_in_process(setup):
 
 
 def test_serve_device_marks_its_steps(setup):
-    """A profiled serve_device call has one range a step and microbatch
-    (the smoke run splits a rank's batch by them); the marks change no
-    result."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """A recorded serve_device call has one span a step and microbatch,
+    in order and disjoint, under one root span (the smoke run splits a
+    rank's batch by them); the spans change no result."""
     inp = setup["inp"]
     eng = DistributedServingEngine(inp["pts"], inp["clusters"], inp["rp"],
                                    inp["rl"], device="cpu")
     q = torch.from_numpy(inp["q"])
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profiling.recording(profiling.Recorder()) as rec:
         d, i = eng.serve_device(q, 10, 3, voting_t=8, microbatch=16)
-    counts = {e.key: e.count for e in prof.key_averages()}
+    spans = rec.drain().spans
+    (root,) = [sp for sp in spans if sp.parent == -1]
+    steps = [sp for sp in spans if sp.parent != -1]
     per_batch = -(-len(q) // 16)
-    assert [counts.get(s) for s in SERVE_STEPS] == [per_batch] * 3 + [1]
+    assert root.name == "dist.batch"
+    assert [sp.name for sp in steps] == (list(SERVE_STEPS[:3]) * per_batch
+                                         + [SERVE_STEPS[3]])
+    assert all(sp.parent == root.id and sp.batch == root.batch
+               for sp in steps)
+    edges = [t for sp in steps for t in (sp.start_ns, sp.end_ns)]
+    assert edges == sorted(edges)
+    assert root.start_ns <= edges[0] and edges[-1] <= root.end_ns
     want = eng.serve(inp["q"], 10, 3, voting_t=8, microbatch=16)
     np.testing.assert_array_equal(d.numpy(), want[0])
     np.testing.assert_array_equal(i.numpy(), want[1])

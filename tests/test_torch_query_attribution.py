@@ -56,6 +56,7 @@ PARTS = ("part.k=4.BalancedKMeans", "part.k=4.OKM.o=0.2")
 NEW_MODULES = (
     "gpann_tpu_torch.core.timer", "gpann_tpu_torch.core.profiling",
     "gpann_tpu_torch.eval.combination", "gpann_tpu_torch.search.ivf",
+    "gpann_tpu_torch.search.exact",
     "gpann_tpu_torch.search.two_level", "gpann_tpu_torch.search.shard_sweep",
     "gpann_tpu_torch.route.sweep", "gpann_tpu_torch.gp.overlap",
     "gpann_tpu_torch.cli.small_scale_queries",

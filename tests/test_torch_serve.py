@@ -17,6 +17,7 @@ from gpann_tpu.eval import compute_ground_truth, kth_neighbor_distance, recall_f
 from gpann_tpu.route import centroid_router
 from gpann_tpu.search.serve import ServingEngine as JaxEngine
 from gpann_tpu_torch.core import profiling
+from gpann_tpu_torch.search import exact
 from gpann_tpu_torch.search.serve import ServingEngine, _group, _probe_rank
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -206,6 +207,51 @@ def test_binned_tiny_shards_take_exact_scan(setup):
     assert recall_from_ids(pts, q[:16], fi, kth[:16], 10) == 1.0
 
 
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+@pytest.mark.parametrize("blocks_a_step", [1, 3])
+def test_exact_scan_in_tile_steps_matches_one_step(monkeypatch, metric,
+                                                   blocks_a_step):
+    """The exact scan mode gives the same lists, bit for bit, whether its
+    blocks go through in one step or in many under a small ``TILE_BYTES``;
+    overlapping shards, a shard smaller than k and probes cut short to the
+    dummy shard (``pyramid`` with one vote) included. Where a query meets
+    fewer than k rows, the tail of its list is (+inf, -1)."""
+    rng = np.random.default_rng(5)
+    d = 8
+    pts = rng.standard_normal((1000, d)).astype(np.float32)
+    pts[:5] += 10.0                                  # the tiny shard, far off
+    clusters = [np.arange(0, 5), np.arange(5, 600), np.arange(400, 1000)]
+    rp = np.stack([pts[c].mean(0) for c in clusters]).astype(np.float32)
+    q = np.concatenate([pts[:4] + 0.1 * rng.standard_normal((4, d)),
+                        rng.standard_normal((44, d))]).astype(np.float32)
+    eng = ServingEngine(pts, clusters, rp, np.arange(3, dtype=np.int32),
+                        metric=metric, pad_multiple=128, device="cpu")
+    assert eng.overlapping and not eng._binned(10)
+    qb = 16
+    for nprobes, rule, voting_t in ((1, "min_dist", 3), (2, "min_dist", 3),
+                                    (2, "pyramid", 1)):
+        args = dict(k=10, nprobes=nprobes, voting_t=voting_t, rule=rule,
+                    query_block=qb)
+        nb = -(-len(q) * nprobes // qb) + eng.num_shards + 1
+        assert exact.blocks_per_step(eng.capacity, qb, d) >= nb  # one step
+        one = eng.serve(q, **args)
+        with monkeypatch.context() as mp:
+            mp.setattr(exact, "TILE_BYTES",
+                       4 * eng.capacity * (qb + d) * blocks_a_step)
+            assert exact.blocks_per_step(eng.capacity, qb, d) == blocks_a_step
+            many = eng.serve(q, **args)
+        np.testing.assert_array_equal(many[0], one[0])
+        np.testing.assert_array_equal(many[1], one[1])
+        np.testing.assert_array_equal(one[1] < 0, np.isinf(one[0]))
+        for row in one[1]:
+            row = row[row >= 0]
+            assert len(np.unique(row)) == len(row)
+        if nprobes == 1 or rule == "pyramid":
+            # the queries by the tiny shard meet its 5 rows only
+            assert np.isfinite(one[0][:4, :5]).all()
+            assert (one[1][:4, 5:] == -1).all()
+
+
 def test_overlapping_dedup_matches_jax():
     rng = np.random.default_rng(21)
     pts = rng.standard_normal((1000, 8)).astype(np.float32)
@@ -276,16 +322,19 @@ def test_binned_engine_on_gpu_matches_cpu(cuda_device, slice_case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scan_mode", ["binned", "exact"])
 @pytest.mark.parametrize("rule", ["min_dist", "pyramid", "spann", "frequency"])
 @pytest.mark.parametrize("voting_impl", ["exact", "approx", "rescore", "binned"])
 def test_binned_engine_enqueues_a_batch_without_a_host_wait(
-        cuda_device, slice_case, rule, voting_impl):
-    """Routing, grouping, the binned scan and the merge neither read a device
-    value back nor copy a host value over: the first wait of a batch is the
-    read-back of its results. ``serve`` on the card gives the CPU's ids."""
+        cuda_device, slice_case, rule, voting_impl, scan_mode):
+    """Routing, grouping, the scan (binned or exact) and the merge neither
+    read a device value back nor copy a host value over: the first wait of
+    a batch is the read-back of its results. ``serve`` on the card gives
+    the CPU's ids."""
     pts, q, kth, clusters, rpts, rlbl, jeng = slice_case
-    cpu = port(jeng, voting_impl=voting_impl)
-    gpu = port(jeng, device=cuda_device, voting_impl=voting_impl)
+    cpu = port(jeng, voting_impl=voting_impl, scan_mode=scan_mode)
+    gpu = port(jeng, device=cuda_device, voting_impl=voting_impl,
+               scan_mode=scan_mode)
     args = dict(k=10, nprobes=3, voting_t=8, rule=rule, query_block=16)
     gd, gi = gpu.serve(q, **args)   # the first call builds the kernels
     cd, ci = cpu.serve(q, **args)
