@@ -35,7 +35,11 @@ taken two blocks later. Before refilling a host buffer the host waits for the
 copy that last read it; a device block is overwritten only after the scan
 that last read it. On the CPU the host buffer is the block and the upload is
 the identity: the same path, run in order. The rows, their order, the blocks
-and the merge are those of a serial pass, so the answers are too.
+and the merge are those of a serial pass, so the answers are too. A store's
+block is cut into contiguous row ranges that a pool of reader threads, made
+with the ring, copies side by side from the shard file, each through a
+memmap of its own (``np.copyto`` leaves the interpreter lock); the pass
+waits for every range before the upload.
 
 With a recorder installed (:func:`gpann_tpu_torch.core.profiling.recording`)
 a pass records the spans ``stream.pass`` (one batch id a pass) and, inside
@@ -49,14 +53,18 @@ host), and ``stream.merge``; the spans are disjoint in host time. Counters:
 (``stats["bytes_uploaded"]``), ``stream.blocks_binned``,
 ``stream.blocks_exact``, ``stream.b2_pair_rows`` (query rows times real rows
 of each binned block), ``stream.blocks_staged`` (blocks through the staging
-ring) and ``stream.staging_waits`` (refills whose host buffer's copy was
-still in flight). Without one, each call site only reads the module global.
+ring), ``stream.staging_waits`` (refills whose host buffer's copy was
+still in flight) and ``stream.fill_parts`` (the row ranges each block's fill
+ran as: one a block outside a store). Without one, each call site only reads
+the module global.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -74,6 +82,11 @@ _ROUTE_CHUNK = 65536    # queries per routing step
 _ASSIGN_CHUNK = 262144  # rows per sub-cluster assignment step
 # share of the device's free memory one scanned block may take
 _FREE_SHARE = 0.5
+# threads that fill one staging buffer of a store pass side by side: one
+# core is left to the host's launches and takes, and more than
+# _READER_CAP read no faster from the page cache of an 8-core H100 host
+_READER_CAP = 6
+_READERS = max(1, min(_READER_CAP, len(os.sched_getaffinity(0)) - 1))
 
 
 def _masked_rescored_topk(q_block: torch.Tensor, blk: torch.Tensor, size: int,
@@ -124,6 +137,14 @@ def _copy_runs(src: np.ndarray, runs: List[Tuple[int, int]], out: np.ndarray,
         at += e - s
 
 
+def _parts(lo: int, hi: int, readers: int) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` cut into at most ``readers`` contiguous non-empty row
+    ranges of near-equal length."""
+    n = hi - lo
+    w = max(1, min(readers, n))
+    return [(lo + n * k // w, lo + n * (k + 1) // w) for k in range(w)]
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """``t`` on the host. From a CUDA device the copy goes into page-locked
     memory and is only enqueued: read it after an event recorded behind it
@@ -141,7 +162,8 @@ class _Staging:
     ``rows`` x ``d`` of the source dtype. On a CUDA device the host buffers
     are page-locked and :meth:`upload` is an asynchronous copy on a copy
     stream; on the CPU the host buffer is the block and the upload is the
-    identity.
+    identity. With ``readers`` > 1 the ring keeps a pool of that many
+    threads that fill a host buffer side by side (:meth:`fill`).
 
     The ring's two conditions: a host buffer is refilled only after the copy
     that last read it has ended (:meth:`wait_free`), and a device block is
@@ -149,8 +171,13 @@ class _Staging:
     the copy stream wait on the event given to :meth:`scanned`)."""
 
     def __init__(self, rows: int, d: int, dtype: np.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device, readers: int) -> None:
         self.rows = rows
+        self.readers = readers
+        # the threads that fill a host buffer side by side (see fill)
+        self.pool = None
+        if readers > 1:
+            self.pool = ThreadPoolExecutor(readers, "stream-read")
         self.cuda = device.type == "cuda"
         tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
         self.host = [torch.empty((rows, d), dtype=tdtype,
@@ -169,6 +196,28 @@ class _Staging:
 
     def device_bytes(self) -> int:
         return sum(b.nbytes for b in self.blocks) if self.cuda else 0
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown()
+
+    def fill(self, i: int, fill, lo: int, hi: int) -> int:
+        """Fill host buffer ``i`` with the rows ``[lo, hi)`` of a read
+        (``fill(out, lo, hi)``, see :meth:`StreamedShardEngine._reader`):
+        with a pool, cut into :func:`_parts` that its threads read into
+        disjoint rows of the buffer side by side. Returns, once every part
+        has ended, the number of parts."""
+        out = self.views[i]
+        if self.pool is None:
+            fill(out[: hi - lo], lo, hi)
+            return 1
+        parts = _parts(lo, hi, self.readers)
+        futures = [self.pool.submit(fill, out[a - lo : z - lo], a, z)
+                   for a, z in parts]
+        wait(futures)
+        for f in futures:
+            f.result()
+        return len(parts)
 
     def upload(self, i: int, n: int) -> torch.Tensor:
         """Enqueue the copy of slot ``i``'s first ``n`` host rows into its
@@ -514,10 +563,17 @@ class StreamedShardEngine:
 
     def _staging(self, rows: int) -> _Staging:
         """The ring, made at first use and kept across passes; made anew
-        only when a pass uploads a larger block."""
+        only when a pass uploads a larger block. A store's reads fill each
+        host buffer over ``_READERS`` threads, made with the ring; other
+        sources (an array or an array-like base, whose reads may hold the
+        interpreter lock) over the calling thread alone."""
         if self._stage is None or self._stage.rows < rows:
+            if self._stage is not None:
+                self._stage.close()
             self._stage = None      # the old ring goes before the new one
-            self._stage = _Staging(rows, self.dim, self.dtype, self.device)
+            self._stage = _Staging(
+                rows, self.dim, self.dtype, self.device,
+                _READERS if self.store is not None else 1)
         return self._stage
 
     def takes_binned(self, size: int, k: int) -> bool:
@@ -591,7 +647,10 @@ class StreamedShardEngine:
         # every read of its shards, pruned or whole
         grouped = self.store is not None and self.sub_slices is not None
         if self.store is not None:
-            srows = self.store.shard_rows(b)
+            # each call maps the shard file anew, so each reader thread
+            # faults its rows in through a mapping of its own (one mapping
+            # shared by the readers of a block read slower)
+            store = self.store
             if sub_nprobe is not None \
                     and len(self.sub_centroids[b]) > sub_nprobe:
                 # pruning COMPOSED with the contiguous layout: the store
@@ -605,12 +664,13 @@ class StreamedShardEngine:
                 members = np.concatenate(
                     [np.asarray(members[s:e]) for s, e in runs]
                 ).astype(np.int64)
-                return (lambda out, lo, hi:
-                        _copy_runs(srows, runs, out, lo, hi)), members, grouped
+                return (lambda out, lo, hi: _copy_runs(
+                    store.shard_rows(b), runs, out, lo, hi)), members, grouped
             # shard-major layout: ONE contiguous read, the reference's
             # streaming read of owned ranges
             # (distributed_query_benchmark.h:48-84)
-            return (lambda out, lo, hi: np.copyto(out, srows[lo:hi])), \
+            return (lambda out, lo, hi:
+                    np.copyto(out, store.shard_rows(b)[lo:hi])), \
                 members, grouped
         if sub_nprobe is not None and len(self.sub_members[b]) > sub_nprobe:
             # in-shard pruning: gather and upload ONLY the union of each
@@ -744,11 +804,12 @@ class StreamedShardEngine:
                     t0 = time.perf_counter()
                     if rec is not None:
                         step = rec.begin("stream.gather", dev)
-                fill(stage.views[i][: hi - lo], lo, hi)
+                parts = stage.fill(i, fill, lo, hi)
                 if rec is not None:
                     rec.end(step, dev)
                     rec.count("stream.bytes_read",
                               (hi - lo) * self.dim * self.dtype.itemsize)
+                    rec.count("stream.fill_parts", parts)
                 t1 = time.perf_counter()
                 stats["gather_s"] += t1 - t0
                 if rec is not None:

@@ -313,20 +313,24 @@ SLOW_CYCLES = 4_000_000    # ~2 ms of the card's clock
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("readers", [1, 3], ids=["one-reader", "split-fill"])
 @pytest.mark.parametrize("lag", ["none", "slow-copy", "slow-scan"])
 @pytest.mark.parametrize("dtype", ["f32", "u8"])
 @pytest.mark.parametrize("scan_mode", ["binned", "exact"])
 def test_ring_wraps_bit_equal_to_serial(cuda, ring, monkeypatch, scan_mode,
-                                        dtype, lag):
+                                        dtype, lag, readers):
     """50 blocks through the two staging slots, each slot refilled ~25
     times in the pass: the answers equal the serial composition's bit for
     bit. ``slow-copy`` puts ~2 ms on the copy stream before every copy,
     so the host reaches a buffer whose copy is still queued (a refill that
     did not wait for it would send another block's rows); ``slow-scan``
     puts it on the compute stream before every scan, so a copy reaches a
-    device block that a queued scan has still to read."""
+    device block that a queued scan has still to read. ``split-fill``:
+    three reader threads fill each staging buffer (2560 rows a block, no
+    multiple of three) while the other buffer's copy may still run."""
     from gpann_tpu_torch.search import streamed
 
+    monkeypatch.setattr(streamed, "_READERS", readers)
     data = ring[dtype]
     eng = ring_engine(data, cuda, scan_mode=scan_mode,
                       max_scan_rows=RING_ROWS)
@@ -396,3 +400,50 @@ def test_staging_is_pinned_kept_and_recorded(cuda, ring, monkeypatch):
     summary = summarise(out.spans, out.counters)
     assert summary["outside_ms"] >= 0
     assert summary["stream_scan_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_reader_pool_is_made_once_and_kept(cuda, ring, monkeypatch):
+    """A store engine makes its pool of reader threads once, with the
+    staging ring, and fills every block of later passes on the same
+    threads; ``stream.fill_parts`` counts the readers of each block."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gpann_tpu_torch.core.profiling import Recorder, recording
+    from gpann_tpu_torch.search import streamed
+
+    made = []
+
+    class Counted(ThreadPoolExecutor):
+        def __init__(self, *args, **kw):
+            made.append(self)
+            super().__init__(*args, **kw)
+    monkeypatch.setattr(streamed, "ThreadPoolExecutor", Counted)
+    monkeypatch.setattr(streamed, "_READERS", 3)
+    data = ring["u8"]
+    eng = ring_engine(data, cuda, max_scan_rows=RING_ROWS)
+    seen = set()
+    reader = streamed.StreamedShardEngine._reader
+
+    def noted_reader(self, *args):
+        fill, members, grouped = reader(self, *args)
+
+        def noted(*part):
+            seen.add(threading.get_ident())
+            return fill(*part)
+        return noted, members, grouped
+    monkeypatch.setattr(streamed.StreamedShardEngine, "_reader", noted_reader)
+    first = eng.search(data["q"], K, 3, voting_t=30)
+    pool, threads = eng._stage.pool, set(seen)
+    assert len(made) == 1 and pool is made[0]
+    assert len(threads) == 3 and threading.get_ident() not in threads
+    rec = Recorder()
+    with recording(rec):
+        again = eng.search(data["q"], K, 3, voting_t=30)
+    assert len(made) == 1 and eng._stage.pool is pool and seen == threads
+    np.testing.assert_array_equal(again[0], first[0])
+    np.testing.assert_array_equal(again[1], first[1])
+    c = rec.drain().counters
+    assert c["stream.fill_parts"] == 3 * c["stream.blocks_staged"] \
+        == 3 * again[2]["blocks_scanned"] > 0

@@ -624,6 +624,124 @@ def test_pruned_and_memmap_reads_go_through_the_ring(setup, tmp_path, read):
     assert counters["stream.blocks_staged"] == stats["blocks_scanned"]
 
 
+# -- the split fill of a store pass ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def split_stores(tmp_path_factory):
+    """f32 and u8 stores of a 5000 x 24 hard base in 8 shards, shard 0 of
+    two rows (fewer than the three readers below), regrouped sub-cluster by
+    sub-cluster by the port so that a pass can prune; the routing points
+    and 4 queries of each."""
+    out = {}
+    for dtype in ("f32", "u8"):
+        pts = generate("hard", RN, D, seed=17, dtype=dtype)
+        part = np.random.default_rng(17).integers(1, RS, size=RN)
+        part[:2] = 0
+        path = str(tmp_path_factory.mktemp(dtype))
+        store = trel.relayout_to_store(pts, part, RS, path)
+        rp, rl = np.asarray(pts[::50], np.float32), part[::50]
+        StreamedShardEngine(None, None, rp, rl, store=store, device="cpu"
+                            ).build_subclusters_store(
+            target_sub_size=100, train_sample=600, seed=1)
+        q = generate_queries("hard", 4, D, seed=17, dtype=dtype)
+        out[dtype] = (path, rp, rl, np.asarray(q, np.float32))
+    return out
+
+
+def _split_pass(data, readers, monkeypatch, **kw):
+    """A pass over every shard of ``data``'s store with ``readers`` threads
+    filling each staging buffer: answers, stats, counters, the engine."""
+    from gpann_tpu_torch.search import streamed
+
+    path, rp, rl, q = data
+    monkeypatch.setattr(streamed, "_READERS", readers)
+    eng = StreamedShardEngine(None, None, rp, rl, scan_mode="exact",
+                              store=trel.ShardMajorStore(path), device="cpu",
+                              max_scan_rows=kw.pop("max_scan_rows"))
+    probes = np.tile(np.arange(RS), (len(q), 1))    # the 2-row shard too
+    return (*_ring_counters(eng, q, nprobes=RS, probes=probes, **kw), eng)
+
+
+@pytest.mark.parametrize("max_scan_rows", [None, 97],
+                         ids=["whole-shards", "blocks-of-97"])
+@pytest.mark.parametrize("sub_nprobe", [None, 1], ids=["whole", "pruned"])
+@pytest.mark.parametrize("dtype", ["f32", "u8"])
+def test_split_fill_bit_equal_to_one_reader(split_stores, monkeypatch, dtype,
+                                            sub_nprobe, max_scan_rows):
+    """A store pass whose staging buffers three readers fill side by side
+    gives bit for bit the answers of the same pass with one reader: whole
+    and pruned reads (runs of sub-clusters cut across the readers' ranges),
+    blocks of 97 rows (no multiple of 3), and a 2-row shard, which is read
+    as two parts."""
+    kw = dict(sub_nprobe=sub_nprobe, max_scan_rows=max_scan_rows)
+    d1, i1, s1, c1, one = _split_pass(split_stores[dtype], 1, monkeypatch,
+                                      **kw)
+    d3, i3, s3, c3, three = _split_pass(split_stores[dtype], 3, monkeypatch,
+                                        **kw)
+    np.testing.assert_array_equal(d3, d1)
+    np.testing.assert_array_equal(i3, i1)
+    assert one._stage.pool is None and three._stage.readers == 3
+    assert s3["blocks_scanned"] == s1["blocks_scanned"] == \
+        c3["stream.blocks_staged"] >= RS
+    assert (s3["blocks_scanned"] > RS) == (max_scan_rows is not None)
+    assert c1["stream.fill_parts"] == c1["stream.blocks_staged"]
+    q = split_stores[dtype][3]
+    blocks = []
+    for b in range(RS):
+        n = len(three.shard_block(b, q, sub_nprobe)[1])
+        size = max_scan_rows or n
+        blocks += [min(size, n - lo) for lo in range(0, n, size)]
+    assert c3["stream.fill_parts"] == sum(min(3, n) for n in blocks)
+    assert min(blocks) == 2
+    if sub_nprobe:
+        whole = _split_pass(split_stores[dtype], 3, monkeypatch,
+                            max_scan_rows=max_scan_rows)[2]
+        assert s3["bytes_uploaded"] < whole["bytes_uploaded"]
+
+
+def test_many_readers_fill_tiny_blocks(split_stores, monkeypatch):
+    """Twice as many readers as cores and a short switch interval, over
+    blocks of 37 rows: every row lands where one reader puts it."""
+    import os
+    import sys
+
+    readers = 2 * len(os.sched_getaffinity(0))
+    interval = sys.getswitchinterval()
+    kw = dict(sub_nprobe=1, max_scan_rows=37)
+    want = _split_pass(split_stores["f32"], 1, monkeypatch, **kw)
+    sys.setswitchinterval(1e-6)
+    try:
+        got = _split_pass(split_stores["f32"], readers, monkeypatch, **kw)
+    finally:
+        sys.setswitchinterval(interval)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[3]["stream.fill_parts"] > 4 * got[3]["stream.blocks_staged"]
+
+
+@pytest.mark.parametrize("sub_nprobe", [None, 1], ids=["whole", "pruned"])
+@pytest.mark.parametrize("dtype", ["f32", "u8"])
+def test_store_read_gives_the_memmap_rows_at_any_borders(split_stores, dtype,
+                                                         sub_nprobe):
+    """A store read's ``fill(out, lo, hi)``, which each reader thread calls
+    on its range, gives rows ``[lo, hi)`` of the read as the store's memmap
+    holds them (of the chosen sub-clusters, pruned), at odd borders."""
+    path, rp, rl, q = split_stores[dtype]
+    store = trel.ShardMajorStore(path)
+    eng = StreamedShardEngine(None, None, rp, rl, store=store, device="cpu")
+    fill, members, grouped = eng._reader(3, q, sub_nprobe)
+    rows = np.asarray(store.shard_rows(3))
+    ids = np.asarray(store.shard_ids(3)).astype(np.int64)
+    order = np.argsort(ids)
+    want = rows[order[np.searchsorted(ids[order], members)]]
+    n = len(want)
+    assert grouped and (n < len(rows)) == (sub_nprobe is not None)
+    for lo, hi in ((0, n), (1, 2), (7, n - 3), (n - 1, n)):
+        out = np.full((hi - lo, D), 7, store.dtype)
+        fill(out, lo, hi)
+        np.testing.assert_array_equal(out, want[lo:hi])
+
+
 # -- in-shard sub-clusters -----------------------------------------------------
 
 def test_subcluster_artifact_carried_across(setup):

@@ -136,6 +136,34 @@ def test_counters_count_the_pass(data, scan_mode, max_scan_rows):
             == binned + exact
 
 
+@pytest.mark.parametrize("source", ["store", "in-memory"])
+def test_fill_parts_count_the_readers(data, source, monkeypatch):
+    """``stream.fill_parts`` adds the readers of each block of a store
+    (three here) and one for each block of an in-memory base, whose fill
+    stays on the calling thread; ``stream.gather`` stays one span a
+    block, around the whole fill."""
+    from gpann_tpu_torch.core.partition import partition_to_clusters
+    from gpann_tpu_torch.search import streamed
+
+    monkeypatch.setattr(streamed, "_READERS", 3)
+    if source == "store":
+        eng = _engine(data, "binned", max_scan_rows=2560)
+    else:
+        base, _, shard_of, _, rp, rl = data
+        eng = StreamedShardEngine(base, partition_to_clusters(shard_of, S),
+                                  rp, rl, voting_impl="approx",
+                                  max_scan_rows=2560, device="cpu")
+    (_, _, stats), out = _recorded(eng, data[1][:64])
+    c = out.counters
+    readers = 3 if source == "store" else 1
+    assert (eng._stage.pool is None) == (readers == 1)
+    assert stats["blocks_scanned"] > stats["shards_scanned"]
+    assert c["stream.fill_parts"] == readers * c["stream.blocks_staged"] \
+        == readers * stats["blocks_scanned"]
+    names = [s.name for s in out.spans]
+    assert names.count("stream.gather") == stats["blocks_scanned"]
+
+
 @pytest.mark.parametrize("scan_mode", ["binned", "exact"])
 def test_off_and_on_give_identical_answers(data, scan_mode, monkeypatch):
     eng = _engine(data, scan_mode)
