@@ -21,7 +21,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from annbench import datagen, judge, reference
+from annbench import datagen, judge, spec
 from annbench.spec import ROOT, Cell, engine_module, quantity, reader
 from annbench.trace import WINDOW_SPAN, Trace, spans
 
@@ -62,14 +62,18 @@ class Window(NamedTuple):
 def check_base(cfg: dict, base: np.ndarray, check_q: np.ndarray,
                art: dict) -> float:
     """Widest relative gap between the shipped ``gt_dists`` of the first
-    ``check_slice`` shipped queries and their distances recomputed from the
-    regenerated base and the shipped ``gt_ids``; raises above ``check_rtol``."""
+    ``check_slice`` shipped queries and their distances recomputed by the
+    configuration's reference (``exact_distances``, float64, on the host)
+    from the regenerated base and the shipped ``gt_ids``, over the
+    reference's ``dist_scale`` of each; raises above ``check_rtol``."""
     m = cfg["check_slice"]
-    ids = art["gt_ids"][:m].astype(np.int64)
-    q = check_q[:m].astype(np.float64)
-    got = ((q[:, None, :] - base[ids].astype(np.float64)) ** 2).sum(-1)
+    reference = spec.reference_module(cfg["metric"])
+    q, x = torch.as_tensor(check_q[:m]), torch.as_tensor(base)
+    ids = torch.as_tensor(art["gt_ids"][:m].astype(np.int64))
     want = art["gt_dists"][:m].astype(np.float64)
-    gap = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+    got = reference.exact_distances(q, x, ids).numpy()
+    scale = reference.dist_scale(q, x, ids, torch.as_tensor(want)).numpy()
+    gap = float(np.max(np.abs(got - want) / np.maximum(scale, 1e-12)))
     if not gap <= cfg["check_rtol"]:
         raise RuntimeError(
             f"regenerated base does not match {cfg['artifact']}: shipped "
@@ -214,9 +218,11 @@ def truth(s: Setup, device) -> Truth:
 def compare(cfg: dict, tr: Truth, queries: torch.Tensor, ids: torch.Tensor,
             dists: torch.Tensor, precision: str = "fp32") -> Dict[str, float]:
     """recall_at_10 and the judged numbers of answers (``ids``, ``dists``)
-    to ``queries``, against the reference. ``precision="tf32"`` judges the
-    reference's own answers a precision lower instead (the control) and
+    to ``queries``, against the reference of the configuration's
+    ``metric`` (``"l2"`` where it names none). ``precision="tf32"`` judges
+    the reference's own answers a precision lower instead (the control) and
     ignores ``ids`` and ``dists``."""
+    reference = spec.reference_module(cfg.get("metric", "l2"))
     dev = tr.base.device
     q = queries.to(dev)
     k = cfg["k"]
@@ -230,10 +236,12 @@ def compare(cfg: dict, tr: Truth, queries: torch.Tensor, ids: torch.Tensor,
     served = reference.exact_distances(q, tr.base, ids)
     kth_whole = exact.whole.dists[:, k - 1]
     kth_routed = exact.routed.dists[:, k - 1]
+    scale = reference.dist_scale(q, tr.base, exact.whole.ids[:, k - 1 : k],
+                                 exact.whole.dists[:, k - 1 : k])[:, 0]
     return {
         "recall_at_10": judge.recall(ids, served, kth_whole, k),
         "routed_miss": 1.0 - judge.recall(ids, served, kth_routed, k),
-        "dist_err": judge.dist_err(dists, served, kth_whole),
+        "dist_err": judge.dist_err(dists, served, scale),
     }
 
 

@@ -7,11 +7,11 @@ One set-up serves every seed: for each seed the query pool is drawn anew,
 the closed loop runs for ``--seconds`` at the cell's load, and a sample of
 the served answers is judged as a run judges it (``cell.compare``): the
 program's readings. For each control seed the same judged queries are
-answered by the control instead: the plain reference put in the program's
-place and computed one precision lower, TF32 (the program computes in
-float32), and judged by the same numbers. A JSON line a reading goes to
-standard output and to ``--out``; the last line gives, for each number, the
-largest reading of the program and the smallest of the control.
+answered by the control instead: the configuration's plain reference put in
+the program's place and computed one precision lower, TF32 (the program
+computes in float32), and judged by the same numbers. A JSON line a reading
+goes to standard output and to ``--out``; the last line gives, for each
+number, the largest reading of the program and the smallest of the control.
 
 The benchmark's runs never run this. ``annbench/tests/
 test_annbench_control.py`` runs the same at a small size.

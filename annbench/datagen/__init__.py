@@ -19,15 +19,37 @@ the originals at small sizes. Nothing here writes a file.
 The query traffic is not the shipped queries: :func:`device_batches` draws
 fresh batches from the same mixture on the device with a ``torch.Generator``
 seeded by the run's ``--seed``.
+
+Any other data kind is a module of its own, ``annbench/datagen/<kind>.py``,
+found by name (:func:`named`; there is no list in code). It imports nothing
+of the program and nothing of JAX, and gives the two functions of this
+module without their ``kind`` argument:
+
+- ``base_and_check_queries(n, d, nq, seed)``: the ``[n, d]`` base and the
+  ``[nq, d]`` queries that the configuration's shipped ground truth was
+  computed on, both float32 numpy arrays in host memory, the same bytes for
+  the same arguments;
+- ``device_batches(d, base_seed, num_batches, m, seed, device)``:
+  ``[num_batches, m, d]`` float32 query traffic drawn on ``device`` from
+  ``seed``, the same for the same arguments.
+
+A kind that is neither built in nor such a file raises ``ValueError`` with
+the path that was looked for.
 """
 
 from __future__ import annotations
 
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
+
+from annbench import module_at
+
+HERE = Path(__file__).resolve().parent
+BUILT_IN = ("hard", "blobs")   # drawn here; any other kind is named(kind)
 
 HARD_CLUSTERS, HARD_SUPER = 1024, 32
 BLOBS_CENTERS = 64
@@ -148,7 +170,17 @@ def base_and_check_queries(kind: str, n: int, d: int, nq: int, seed: int):
         return hard_base(n, d, seed), hard_queries(nq, d, seed)
     if kind == "blobs":
         return blobs_base_and_queries(n, d, nq, seed)
-    raise ValueError(f"unknown data kind {kind!r}")
+    return named(kind).base_and_check_queries(n, d, nq, seed)
+
+
+def named(kind: str):
+    """The module ``annbench/datagen/<kind>.py`` of a kind that is not built
+    in (module docstring); ``ValueError`` with the path where there is
+    none."""
+    path = HERE / f"{kind}.py"
+    if not path.exists():
+        raise ValueError(f"unknown data kind {kind!r}: no module at {path}")
+    return module_at(path)
 
 
 # -- the traffic: fresh draws from the same mixture, on the device -------------
@@ -165,8 +197,9 @@ def device_batches(kind: str, d: int, base_seed: int, num_batches: int,
     times the cluster's scales plus its centre; ``int(0.05 * m)`` rows of
     each batch, chosen without replacement, uniform on [-8, 8). ``blobs``: a
     uniform centre plus 0.6 times a normal draw."""
-    if kind not in ("hard", "blobs"):
-        raise ValueError(f"unknown data kind {kind!r}")
+    if kind not in BUILT_IN:
+        return named(kind).device_batches(d, base_seed, num_batches, m, seed,
+                                          device)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     if kind == "blobs":

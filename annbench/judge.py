@@ -1,17 +1,20 @@
 """The numbers that decide ``correct``, and ``recall_at_10``.
 
 Every number compares what the timed path served with the plain reference
-(``annbench/reference``) on a sample of the window's queries:
+of the configuration's metric (``spec.reference_module``) on a sample of the
+window's queries. A smaller distance is nearer, whatever the metric; a
+distance may be negative (an inner-product metric's ``1 - q.x``):
 
 - ``routed_miss``: one less the recall of the served ids against the exact
   top-k over the shards that the reference's own routing probes. The
   program serves exactly that search, so only rounding at a routing or a
   k-th-distance tie, and the binned scan's top-2-per-bin cut, may miss.
 - ``dist_err``: the widest gap between a served distance and the float64
-  distance of the served id, over the query's k-th distance in the whole
-  base, over the served ids that lie in the base. An id that does not go
-  with its distance, or a distance computed in a lower precision, shows
-  here.
+  distance of the served id, over the reference's scale of the query's
+  k-th distance in the whole base (``dist_scale``: for squared L2 the
+  distance itself), over the served ids that lie in the base. An id that
+  does not go with its distance, or a distance computed in a lower
+  precision, shows here.
 - ``invalid_lists``: served lists, over the whole window, that hold an id
   outside the base or an id twice. Exact: its limit is 0.
 
@@ -56,10 +59,11 @@ def recall(served_ids: torch.Tensor, served_exact: torch.Tensor,
 
 
 def dist_err(served_dists: torch.Tensor, served_exact: torch.Tensor,
-             kth: torch.Tensor) -> float:
-    """max |served - exact| / k-th distance over the valid ids (an invalid
-    one is ``invalid_lists``'s to count)."""
-    gap = (served_dists.double() - served_exact).abs() / kth.double()[:, None]
+             scale: torch.Tensor) -> float:
+    """max |served - exact| / ``scale`` of the query over the valid ids (an
+    invalid one is ``invalid_lists``'s to count); ``scale`` is the
+    reference's ``dist_scale`` of the query's k-th distance."""
+    gap = (served_dists.double() - served_exact).abs() / scale.double()[:, None]
     gap = gap[torch.isfinite(served_exact)]
     return float(gap.max()) if gap.numel() else 0.0
 

@@ -4,8 +4,9 @@ window's B2 work (``annbench/roofline_b2.py``: operations and bytes from
 each served batch's probe order, ``StreamedShardEngine.probe_order``) over
 the device time of the ``bintop2`` kernels in the profiler's trace (in a
 streamed cell only B2 launches them: routing's vote is ``torch.topk``);
-nothing for an engine without a probe order over streamed shards. Moves
-``qps``."""
+nothing for an engine without a probe order over streamed shards. Read as
+``b2_roofline.host_bound`` in the streamed cell, whose rate is read per
+layer (``window_qps.streamed``)."""
 
 from annbench.roofline import roofline_pct
 from annbench.roofline_b2 import b2_bytes, b2_ops, b2_work

@@ -21,6 +21,31 @@ loaded or drew them, and works out everything else itself:
 both operands rounded to TF32 first, which is what the tensor cores do) and
 skips the float64 step: the reference one precision below the program's,
 the control of ``annbench/control.py``.
+
+This package is the reference of the metric ``"l2"``. A configuration of
+another metric is judged by the module ``annbench/reference/<metric>.py``
+(``spec.reference_module``; there is no list in code), which like this
+package imports nothing of the program and nothing of JAX and gives:
+
+- ``reference_answers(queries, base, shard_of, routing_points,
+  routing_labels, num_shards, voting_t, nprobes, k, precision="fp32")``:
+  the :class:`Result` of this package (``whole`` and ``routed``
+  :class:`Neighbours`, each row sorted nearest first, a smaller distance
+  nearer), and with ``precision="tf32"`` the control's answers;
+- ``exact_distances(queries, base, ids)``: ``[m, c]`` float64 distances of
+  ``base[ids]`` to each query under the metric, +inf where an id lies
+  outside the base;
+- ``dist_scale(queries, base, ids, dists)``: ``[m, c]`` float64, the
+  magnitude against which a gap in ``dists`` (the distances of
+  ``base[ids]`` to each query) is measured: the size of what a distance is
+  computed from, not of a distance that the metric shifts by a constant
+  (for ``1 - q.x``, ``|q| |x|``, not ``|1 - q.x|``, which nears 0 wherever
+  ``q.x`` nears 1).
+
+``cell.compare`` judges the served answers with them (``dist_err`` over the
+``dist_scale`` of each query's k-th neighbour), and ``cell.check_base``
+checks the regenerated base against the shipped ground truth's distances
+with ``exact_distances`` and ``dist_scale``.
 """
 
 from __future__ import annotations
@@ -99,6 +124,13 @@ def exact_distances(queries: torch.Tensor, base: torch.Tensor,
     rows = base[torch.where(valid, ids, 0).long()].double()     # [m, c, d]
     d = ((queries.double()[:, None, :] - rows) ** 2).sum(-1)
     return torch.where(valid, d, torch.inf)
+
+
+def dist_scale(queries: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
+               dists: torch.Tensor) -> torch.Tensor:
+    """The magnitude of each of ``dists``: a squared distance is its own
+    scale (a float64 sum of squares, never below +0)."""
+    return dists.abs()
 
 
 class Neighbours(NamedTuple):

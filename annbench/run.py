@@ -6,7 +6,7 @@
 Run from the root of a checkout. It regenerates the cell's base, loads the
 shipped index, builds the program's serving engine, serves query batches
 drawn from ``--seed`` in a closed loop for ``--seconds``, judges a sample of
-the served answers against the plain reference (``annbench/reference``),
+the served answers against the configuration's plain reference,
 and prints one JSON line last on standard output: ``correct``,
 ``attempted`` and ``failed`` (queries, and those with an invalid answer
 list), ``metrics`` (the cell's end-to-end metrics with ``--trace 0``, its

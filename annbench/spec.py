@@ -4,13 +4,28 @@
 metrics with the cells that report them. The files behind the names:
 
 - ``annbench/configs/<config>.json``: the deployment (data, index, engine,
-  routing); its ``serving`` names the engine module;
+  routing); its ``serving`` names the engine module, its ``data`` the data
+  and its ``metric`` the plain reference;
 - ``annbench/engines/<serving>.py``: how the harness builds, serves through
   and closes one of the program's engines;
+- ``annbench/datagen/<data>.py``, for a ``data`` that
+  ``annbench/datagen/__init__.py`` does not draw itself
+  (``datagen.BUILT_IN``): the base, the shipped ground truth's queries and
+  the traffic of that data (``datagen.named``; the functions it gives are
+  listed there);
+- ``annbench/reference/<metric>.py``, for a ``metric`` other than ``"l2"``:
+  the plain reference that judges the configuration, as
+  ``annbench/reference/__init__.py``, the squared-L2 reference, judges
+  ``"l2"`` (:func:`reference_module`; the functions it gives are listed
+  there);
 - ``annbench/traffic/<traffic>.json``: the mix (loop, batch, query pool);
 - ``annbench/limits/<cell>.json``: the limit of each number that decides
   ``correct``;
 - ``annbench/metrics/<metric>.py``: the reader of a per-layer metric.
+
+Each module is found by its file, with no list in code: a configuration
+that names a file that is not there fails in :func:`load_cell`, with the
+path, before any work.
 
 A metric named ``<quantity>.<regime>`` is its quantity in the cells of one
 regime (cells whose runs spread alike, and so share a bound): an end-to-end
@@ -26,6 +41,8 @@ import importlib.util
 import json
 from pathlib import Path
 from typing import NamedTuple
+
+from annbench import datagen, module_at, reference
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -59,6 +76,9 @@ def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json") -> Cell:
     w = cells[name]
     config = _load_json(HERE / "configs" / f"{w['config']}.json")
     engine_module(config["serving"])
+    if config["data"] not in datagen.BUILT_IN:
+        datagen.named(config["data"])
+    reference_module(config["metric"])
     return Cell(
         name=name,
         config=config,
@@ -98,3 +118,16 @@ def engine_module(serving: str):
     if not path.exists():
         raise FileNotFoundError(f"no engine {serving!r} at {path}")
     return importlib.import_module(f"annbench.engines.{serving}")
+
+
+def reference_module(metric: str):
+    """The plain reference of ``metric``: the package ``annbench/reference``
+    (squared L2) for ``"l2"``, else the module
+    ``annbench/reference/<metric>.py`` (``annbench.module_at``)."""
+    if metric == "l2":
+        return reference
+    path = HERE / "reference" / f"{metric}.py"
+    if not path.exists():
+        raise FileNotFoundError(f"no reference for metric {metric!r} at "
+                                f"{path}")
+    return module_at(path)

@@ -5,10 +5,15 @@ and no profiler, for the per-layer metrics of the streamed engine's pass
 ``stream_scan_ms.py``).
 
 ``StreamedShardEngine.search`` records one ``stream.pass`` span a batch
-and, inside it, ``stream.route``, ``stream.gather`` (the host read of a
-probed shard's rows), ``stream.upload`` (a block's copy to the card and the
-wait for it), ``stream.scan`` (kernel B2, phase 2 and the block's read-back)
-and ``stream.merge``. Host times come from the spans' ``time.time_ns()``
+and, inside it, ``stream.route``, then for each block of each probed shard
+``stream.gather`` (the fill of a page-locked staging buffer with the
+block's rows from the store, over the engine's reader threads),
+``stream.upload`` (the enqueue of the block's asynchronous copy to the card,
+and the host's wait, if any, for the other staging buffer's copy) and
+``stream.scan`` (from the compute stream's wait on that copy: kernel B2 or
+the exact scan, phase 2 and the enqueue of the results' copy to the host,
+which the pass takes two blocks later, outside every step), and last
+``stream.merge``. Host times come from the spans' ``time.time_ns()``
 edges, stream times from their CUDA events: neither needs a profile. The
 window is served once a process, the first time a reader asks, and kept on
 the engine; a program without these spans, or a run without a CUDA card,

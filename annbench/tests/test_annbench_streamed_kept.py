@@ -94,7 +94,8 @@ def test_a_kept_cell_runs_correct_and_reports_its_metrics(tiny):
     r = run_cell(cell, 2**31 + 91, 0.3, False, "cpu", 0.0, artifact=art)
     assert r["correct"] is True and r["failed"] == 0
     assert r["attempted"] % 64 == 0 and r["attempted"] > 0
-    assert set(r["metrics"]) == {"qps.host_bound", "recall_at_10", "setup_s"}
+    # the rate is read per layer here (window_qps.streamed), not end to end
+    assert set(r["metrics"]) == {"recall_at_10", "setup_s"}
     json.dumps(r, allow_nan=False)
 
 
@@ -218,7 +219,7 @@ def test_a_traced_run_reports_nothing_the_cpu_cannot_read(tiny):
     # no card: no stream window, no device trace
     assert r["metrics"] == {}
     assert {m["name"] for m in cell.per_layer} == {
-        "device_idle_pct.host_bound", *STREAM_METRICS,
+        "window_qps.streamed", "device_idle_pct.streamed", *STREAM_METRICS,
         "b2_roofline.host_bound"}
 
 
@@ -333,11 +334,18 @@ def test_the_cells_entries_and_readers():
     cells = {w["name"]: w for w in b["workloads"]}
     assert cells[CELL]["chips"] == 1
     entries = {m["name"]: m for m in b["end_to_end"] + b["per_layer"]}
+    # the cell's rate spreads too widely for an end-to-end bound: it is
+    # read per layer, and the cell's layers move its recall
     for name in ("qps.host_bound", "device_idle_pct.host_bound"):
-        assert entries[name]["workloads"][-1] == CELL
-    for name in STREAM_METRICS + ("b2_roofline.host_bound",):
+        assert CELL not in entries[name]["workloads"]
+    assert {m["name"] for m in b["end_to_end"]
+            if CELL in m.get("workloads", [CELL])} == {"recall_at_10",
+                                                       "setup_s"}
+    for name in STREAM_METRICS + ("b2_roofline.host_bound",
+                                  "window_qps.streamed",
+                                  "device_idle_pct.streamed"):
         m = entries[name]
-        assert m["workloads"] == [CELL] and m["moves"] == "qps.host_bound"
+        assert m["workloads"] == [CELL] and m["moves"] == "recall_at_10"
         q = name.split(".")[0]
         assert (reader(name).__code__.co_filename
                 == str(ROOT / "annbench" / "metrics" / f"{q}.py"))
@@ -349,3 +357,16 @@ def test_the_cells_entries_and_readers():
     limits = json.loads(
         (ROOT / "annbench" / "limits" / f"{CELL}.json").read_text())
     assert limits["limits"]["invalid_lists"] == 0
+
+
+def test_the_window_rate_reads_the_traced_window_on_a_card(tiny):
+    class T(NamedTuple):
+        window_s: float
+
+    read = reader("window_qps.streamed")
+    ctx = _ctx(tiny)                                    # served [0, 1]
+    assert read(ctx) is None                            # no trace
+    assert read(ctx._replace(trace=T(2.0))) is None     # no card
+    on_card = ctx._replace(trace=T(2.0), device=torch.device("cuda"))
+    assert read(on_card) == 2 * ctx.traffic["batch"] / 2.0
+    assert read(on_card._replace(served=[])) is None
